@@ -5,19 +5,26 @@ A port of the JAX package ``rbl_tpu`` (the reference it is tested against):
 k largest-magnitude eigenpairs of large sparse symmetric matrices via
 randomized block Lanczos with local + partial reorthogonalization, banded
 Rayleigh–Ritz solves on the host, residual-bound convergence and Ritz-vector
-recovery.  The packed block-sparse SpMM runs as a CUDA kernel
-(``csrc/bsr_spmm.cu``) on the card.
+recovery.  The block-sparse SpMMs run as CUDA kernels (``csrc/*.cu``) on
+the card.  Entry points run on the CUDA card unless the caller passes
+``device="cpu"``.
 
 Public surface:
   rbl / RBL / RBL_gpu      — RBL(A, k, b)            (RBL.jl:119)
   RBLConfig                — every knob the reference hardcodes
   operators                — DiagonalOperator, DenseOperator,
-                             BlockSparseOperator, Laplacian2D/3D;
-                             as_operator coerces scipy/numpy/torch input
+                             BlockSparseOperator, DiaOperator,
+                             SparseEllOperator, CooOperator, HybOperator,
+                             Laplacian2D/3D; as_operator coerces
+                             scipy/numpy/torch input and picks the sparse
+                             layout (format="auto"|"dia"|"bsr"|"ell"|"hyb"|"coo")
 """
 
 from .config import RBLConfig
 from .ops.spmm.bsr import BlockSparseOperator
+from .ops.spmm.coo import CooOperator, HybOperator
+from .ops.spmm.dia import DiaOperator
+from .ops.spmm.ell import SparseEllOperator
 from .ops.spmm.operator import (
     DenseOperator,
     DiagonalOperator,
@@ -35,6 +42,10 @@ __all__ = [
     "RBL_gpu",
     "as_operator",
     "BlockSparseOperator",
+    "DiaOperator",
+    "SparseEllOperator",
+    "CooOperator",
+    "HybOperator",
     "DiagonalOperator",
     "DenseOperator",
     "Laplacian2D",

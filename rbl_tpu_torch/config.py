@@ -57,9 +57,10 @@ class RBLConfig:
         and every breakdown re-randomization.
     device:
         Device that holds the operator and the basis when ``rbl`` builds
-        the operator from host data (a scipy or numpy matrix).  None picks
-        CUDA when it is available, else the CPU.  An operator passed in
-        keeps its own device.
+        the operator from host data (a scipy or numpy matrix).  None means
+        the CUDA card, and raises when there is none: a solve on the CPU
+        is asked for with ``device="cpu"``.  An operator passed in keeps
+        its own device.
     hbm_budget_fraction:
         Fraction of free device memory the Krylov basis may use
         (reference: 0.8 of free VRAM, RBL_gpu.jl:96).
@@ -139,13 +140,22 @@ class RBLConfig:
             return self.qr_method
         return "householder" if self.compute_dtype.itemsize >= 8 else "cholqr2"
 
-    def resolved_device(self) -> torch.device:
-        if self.device is not None:
-            return torch.device(self.device)
-        return torch.device("cuda" if torch.cuda.is_available() else "cpu")
-
     def replace(self, **kw) -> "RBLConfig":
         return dataclasses.replace(self, **kw)
+
+
+def resolve_device(device=None) -> torch.device:
+    """``device`` as a torch.device; None means the CUDA card.  Entry
+    points run on the card unless the caller asks for the CPU, so a
+    missing card raises instead of falling back to the host."""
+    if device is not None:
+        return torch.device(device)
+    if torch.cuda.device_count() == 0:
+        raise RuntimeError(
+            "no CUDA device: rbl_tpu_torch runs on the card by default; "
+            'pass device="cpu" (or RBLConfig(device="cpu")) to run on the CPU'
+        )
+    return torch.device("cuda")
 
 
 # RBLConfig.matmul_precision -> torch's float32 matmul precision.  torch's

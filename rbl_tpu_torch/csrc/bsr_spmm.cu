@@ -1,26 +1,33 @@
-// Packed block-sparse SpMM, Y = A·X, for Hopper (sm_90a).
+// Block-sparse SpMM, Y = A·X, for Hopper (sm_90a): packed and blocked-ELL
+// layouts.
 //
-// Replaces the two Pallas TPU kernels of the JAX package:
+// Replaces three Pallas TPU kernels of the JAX package:
 //   rbl_tpu/ops/spmm/pallas_bsr.py:418 bsr_spmm_packed_resident
 //       (kernel body _make_packed_resident_kernel, :250-288)
 //   rbl_tpu/ops/spmm/pallas_bsr.py:182 bsr_spmm_packed
 //       (kernel body _make_packed_kernel, :146-175)
-// Both Python entry points (rbl_tpu_torch/ops/spmm/bsr.py) launch this one
-// kernel: the TPU needed two because X either fit its on-chip VMEM or had
-// to be fetched tile by tile; here X is read straight from device memory
-// and, at the solver's sizes (a few to tens of MB), stays in the 50 MB L2.
+//   rbl_tpu/ops/spmm/pallas_bsr.py:80 bsr_spmm, blocked-ELL
+//       (kernel body _make_bsr_kernel, :42-73)
+// The two packed Python entry points (rbl_tpu_torch/ops/spmm/bsr.py)
+// launch one kernel: the TPU needed two because X either fit its on-chip
+// VMEM or had to be fetched tile by tile; here X is read straight from
+// device memory and, at the solver's sizes (a few to tens of MB), stays in
+// the 50 MB L2.  Blocked-ELL is the packed layout with L tiles in every
+// block-row, so it is the same kernel body, templated on how a block-row
+// finds its tile range: no hcount or rptr array exists for it.
 //
 // Layout (CSR of tiles, built by _packed_bsr_from_scipy): block-row i owns
-// the tiles [rptr[i]·U, (rptr[i] + hcount[i])·U) of vals (T, bm, bk);
-// tile t multiplies rows [tile_cols[t]·bk, +bk) of X (ncb·bk, b), row-major.
+// the tiles [rptr[i]·U, (rptr[i] + hcount[i])·U) of vals (T, bm, bk) —
+// blocked-ELL: [i·L, (i+1)·L); tile t multiplies rows
+// [tile_cols[t]·bk, +bk) of X (ncb·bk, b), row-major.
 //
 // What bounds it: the bytes of vals.  Every tile is read exactly once per
 // apply and used for bm·bk·b multiply-adds, while X and Y are small.  The
 // design therefore streams each tile once, with many bytes in flight, and
 // keeps the sums in registers:
 //   - one CTA per block-row (grid.x) and per group of up to 32 columns of
-//     X (grid.y), looping over exactly that row's hcount[i]·U tiles — no
-//     grid over the longest row, no no-op steps for short rows;
+//     X (grid.y), looping over exactly that row's tiles — no grid over the
+//     longest row, no no-op steps for short rows;
 //   - each tile is staged through shared memory in slices of 32 columns
 //     of the contraction (the vals slice and the matching 32 rows of X).
 //     vals is read with 16-byte streaming loads into registers one slice
@@ -33,51 +40,37 @@
 //     one shared read of vals per contraction step serves all its columns.
 // No TMA or wgmma yet: the kernel is a plain CUDA C++ one.
 
-#include <cuda_runtime.h>
+#include "spmm_common.cuh"
 
 namespace {
 
-constexpr int kThreads = 128;  // threads per CTA
-constexpr int kKC = 32;        // contraction slice staged in shared memory
-constexpr int kMaxBM = 128;    // tallest tile the kernel takes
-constexpr int kMaxBW = 32;     // columns of X one CTA handles
-constexpr int kLX = kKC * kMaxBW / kThreads;  // X elements per thread and slice
+using namespace rbl;
 
-template <typename T> struct Vec16;
-template <> struct Vec16<float> {
-  using type = float4;
-  static constexpr int n = 4;
-  __device__ static void unpack(const float4& v, float* out) {
-    out[0] = v.x; out[1] = v.y; out[2] = v.z; out[3] = v.w;
-  }
-};
-template <> struct Vec16<double> {
-  using type = double2;
-  static constexpr int n = 2;
-  __device__ static void unpack(const double2& v, double* out) {
-    out[0] = v.x; out[1] = v.y;
+// Tile range of block-row i in the packed layout.
+struct PackedRows {
+  const int* hcount;
+  const int* rptr;
+  int unroll;
+  __device__ void range(int i, long long& t0, long long& t1) const {
+    t0 = static_cast<long long>(rptr[i]) * unroll;
+    t1 = t0 + static_cast<long long>(hcount[i]) * unroll;
   }
 };
 
-__device__ __forceinline__ float fma_rn(float a, float b, float c) {
-  return __fmaf_rn(a, b, c);
-}
-__device__ __forceinline__ double fma_rn(double a, double b, double c) {
-  return __fma_rn(a, b, c);
-}
+// Tile range of block-row i in the blocked-ELL layout.
+struct EllRows {
+  int L;
+  __device__ void range(int i, long long& t0, long long& t1) const {
+    t0 = static_cast<long long>(i) * L;
+    t1 = t0 + L;
+  }
+};
 
-// NC: the most columns one thread accumulates (a power of two ≥ its share
-// of the CTA's columns), so that the unrolled column loop issues no more
-// than twice the useful multiply-adds.
-template <typename T, int NC>
+template <typename T, int NC, typename Rows>
 __global__ void __launch_bounds__(kThreads)
-bsr_spmm_packed_kernel(const int* __restrict__ tile_cols,
-                       const int* __restrict__ hcount,
-                       const int* __restrict__ rptr,
-                       const T* __restrict__ vals,
-                       const T* __restrict__ X,
-                       T* __restrict__ Y,
-                       int bm, int bk, int b, int unroll) {
+bsr_spmm_kernel(const int* __restrict__ tile_cols, Rows rows,
+                const T* __restrict__ vals, const T* __restrict__ X,
+                T* __restrict__ Y, int bm, int bk, int b) {
   using V = typename Vec16<T>::type;
   constexpr int kVW = Vec16<T>::n;                  // elements per 16 bytes
   constexpr int kVPR = kKC / kVW;                   // vectors per slice row
@@ -98,17 +91,7 @@ bsr_spmm_packed_kernel(const int* __restrict__ tile_cols,
   const bool active = g < G && g < bw;
   const int ncol = active ? (bw - g + G - 1) / G : 0;
 
-  // X staging: element e = tid + j·kThreads of the (kKC, bw) slice; the
-  // offsets are the same for every slice
-  int xsrc[kLX], xdst[kLX];
-#pragma unroll
-  for (int j = 0; j < kLX; ++j) {
-    const int e = tid + j * kThreads;
-    const int kk = e / bw, c = e % bw;
-    const bool ok = e < kKC * bw;
-    xsrc[j] = ok ? kk * b + c : -1;
-    xdst[j] = ok ? kk * (kMaxBW + 1) + c : 0;
-  }
+  const XStage xst(tid, bw, b);
 
   T acc[NC];
 #pragma unroll
@@ -131,12 +114,12 @@ bsr_spmm_packed_kernel(const int* __restrict__ tile_cols,
                   static_cast<long long>(k0) * b + c0;
 #pragma unroll
     for (int j = 0; j < kLX; ++j) {
-      if (xsrc[j] >= 0) xreg[j] = xt[xsrc[j]];
+      if (xst.src[j] >= 0) xreg[j] = xt[xst.src[j]];
     }
   };
 
-  const long long t0 = static_cast<long long>(rptr[i]) * unroll;
-  const long long t1 = t0 + static_cast<long long>(hcount[i]) * unroll;
+  long long t0, t1;
+  rows.range(i, t0, t1);
   if (t0 < t1) prefetch(t0, 0);
   for (long long t = t0; t < t1; ++t) {
     for (int k0 = 0; k0 < bk; k0 += kKC) {
@@ -149,7 +132,7 @@ bsr_spmm_packed_kernel(const int* __restrict__ tile_cols,
       }
 #pragma unroll
       for (int j = 0; j < kLX; ++j) {
-        if (xsrc[j] >= 0) (&xs[0][0])[xdst[j]] = xreg[j];
+        if (xst.src[j] >= 0) (&xs[0][0])[xst.dst[j]] = xreg[j];
       }
       __syncthreads();
       // loads of the next slice fly while this one is multiplied
@@ -182,41 +165,19 @@ bsr_spmm_packed_kernel(const int* __restrict__ tile_cols,
   }
 }
 
-template <typename T, int NC>
-void launch_nc(dim3 grid, cudaStream_t stream, const int* tile_cols,
-               const int* hcount, const int* rptr, const T* vals, const T* X,
-               T* Y, int bm, int bk, int b, int unroll) {
-  bsr_spmm_packed_kernel<T, NC><<<grid, kThreads, 0, stream>>>(
-      tile_cols, hcount, rptr, vals, X, Y, bm, bk, b, unroll);
-}
-
-template <typename T>
-int launch(const int* tile_cols, const int* hcount, const int* rptr,
-           const T* vals, const T* X, T* Y, int nb, int bm, int bk, int b,
-           int unroll, void* stream) {
-  if (bm < 1 || bm > kMaxBM || bk < kKC || bk % kKC != 0 || b < 1 ||
-      unroll < 1 || nb < 0 ||
-      reinterpret_cast<unsigned long long>(vals) % 16 != 0) {
+template <typename T, typename Rows>
+int launch(const int* tile_cols, Rows rows, const T* vals, const T* X, T* Y,
+           int nb, int bm, int bk, int b, void* stream) {
+  if (!valid_launch(nb, bm, bk, b, vals)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (nb == 0) return 0;
   const dim3 grid(nb, (b + kMaxBW - 1) / kMaxBW);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int groups = kThreads / bm;
-  const int ncol = ((b < kMaxBW ? b : kMaxBW) + groups - 1) / groups;
-  if (ncol <= 1) {
-    launch_nc<T, 1>(grid, s, tile_cols, hcount, rptr, vals, X, Y, bm, bk, b, unroll);
-  } else if (ncol <= 2) {
-    launch_nc<T, 2>(grid, s, tile_cols, hcount, rptr, vals, X, Y, bm, bk, b, unroll);
-  } else if (ncol <= 4) {
-    launch_nc<T, 4>(grid, s, tile_cols, hcount, rptr, vals, X, Y, bm, bk, b, unroll);
-  } else if (ncol <= 8) {
-    launch_nc<T, 8>(grid, s, tile_cols, hcount, rptr, vals, X, Y, bm, bk, b, unroll);
-  } else if (ncol <= 16) {
-    launch_nc<T, 16>(grid, s, tile_cols, hcount, rptr, vals, X, Y, bm, bk, b, unroll);
-  } else {
-    launch_nc<T, 32>(grid, s, tile_cols, hcount, rptr, vals, X, Y, bm, bk, b, unroll);
-  }
+  dispatch_ncol(bm, b, [&](auto nc) {
+    bsr_spmm_kernel<T, decltype(nc)::value, Rows><<<grid, kThreads, 0, s>>>(
+        tile_cols, rows, vals, X, Y, bm, bk, b);
+  });
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -224,23 +185,44 @@ int launch(const int* tile_cols, const int* hcount, const int* rptr,
 
 extern "C" {
 
-// Returns the cudaError_t of the launch (0 on success).  All pointers are
-// device pointers (vals 16-byte aligned); the launch is asynchronous on
-// ``stream``.
+// Each returns the cudaError_t of the launch (0 on success).  All pointers
+// are device pointers (vals 16-byte aligned); the launch is asynchronous
+// on ``stream``.
+
+// Packed layout (B1/B2).
 int rbl_bsr_spmm_packed_f32(const int* tile_cols, const int* hcount,
                             const int* rptr, const float* vals,
                             const float* X, float* Y, int nb, int bm, int bk,
                             int b, int unroll, void* stream) {
-  return launch<float>(tile_cols, hcount, rptr, vals, X, Y, nb, bm, bk, b,
-                       unroll, stream);
+  if (unroll < 1) return static_cast<int>(cudaErrorInvalidValue);
+  return launch<float>(tile_cols, PackedRows{hcount, rptr, unroll}, vals, X,
+                       Y, nb, bm, bk, b, stream);
 }
 
 int rbl_bsr_spmm_packed_f64(const int* tile_cols, const int* hcount,
                             const int* rptr, const double* vals,
                             const double* X, double* Y, int nb, int bm,
                             int bk, int b, int unroll, void* stream) {
-  return launch<double>(tile_cols, hcount, rptr, vals, X, Y, nb, bm, bk, b,
-                        unroll, stream);
+  if (unroll < 1) return static_cast<int>(cudaErrorInvalidValue);
+  return launch<double>(tile_cols, PackedRows{hcount, rptr, unroll}, vals, X,
+                        Y, nb, bm, bk, b, stream);
+}
+
+// Blocked-ELL layout (B3): L tiles in every block-row.
+int rbl_bsr_spmm_ell_f32(const int* block_cols, const float* block_vals,
+                         const float* X, float* Y, int nb, int L, int bm,
+                         int bk, int b, void* stream) {
+  if (L < 1) return static_cast<int>(cudaErrorInvalidValue);
+  return launch<float>(block_cols, EllRows{L}, block_vals, X, Y, nb, bm, bk,
+                       b, stream);
+}
+
+int rbl_bsr_spmm_ell_f64(const int* block_cols, const double* block_vals,
+                         const double* X, double* Y, int nb, int L, int bm,
+                         int bk, int b, void* stream) {
+  if (L < 1) return static_cast<int>(cudaErrorInvalidValue);
+  return launch<double>(block_cols, EllRows{L}, block_vals, X, Y, nb, bm, bk,
+                        b, stream);
 }
 
 }  // extern "C"

@@ -2,8 +2,10 @@
 
 The solver core is written against one abstract ``LinearOperator``.  Each
 implementation is a plain class holding its tensors on an explicit device:
-dense, diagonal, the matrix-free stencils, and the packed block-sparse
-operator whose SpMM is a hand-written CUDA kernel (``bsr.py``).
+dense, diagonal, the matrix-free stencils, the DIA/ELL/COO/HYB sparse
+layouts (``dia.py``, ``ell.py``, ``coo.py``) and the block-sparse operator
+whose SpMM is a hand-written CUDA kernel (``bsr.py``).  ``as_operator``
+routes a sparse matrix to one of them (``_pick_sparse_format``).
 """
 
 from __future__ import annotations
@@ -13,10 +15,32 @@ import dataclasses
 import numpy as np
 import torch
 
+from ...config import resolve_device
+
+# numpy counterparts of the torch dtypes an operator may hold.  numpy has
+# no bfloat16: such operators are built in float32 on the host and cast on
+# the way to the device.
+_NP_OF = {torch.float16: np.float16, torch.float32: np.float32,
+          torch.float64: np.float64}
+
 
 def _pet(dtype: torch.dtype) -> torch.dtype:
     """Accumulation dtype: accumulate sub-f32 inputs in f32."""
     return torch.float32 if dtype.itemsize < 4 else dtype
+
+
+def host_dtype(dtype, like) -> np.dtype:
+    """numpy dtype in which the host builds the arrays of an operator of
+    torch ``dtype`` (None: ``like``, the input matrix's own dtype)."""
+    if dtype is None:
+        return np.dtype(like)
+    return np.dtype(_NP_OF.get(dtype, np.float32))
+
+
+def to_device(a: np.ndarray, dtype, device) -> torch.Tensor:
+    """A host array as a tensor of ``dtype`` (None: its own) on ``device``."""
+    t = torch.from_numpy(np.ascontiguousarray(a))
+    return t.to(device=device, dtype=dtype if dtype is not None else t.dtype)
 
 
 def dot(a: torch.Tensor, b: torch.Tensor, acc: torch.dtype) -> torch.Tensor:
@@ -180,10 +204,10 @@ class Laplacian2D(LinearOperator):
     nx: int
     ny: int
     dtype: torch.dtype = torch.float64
-    device: torch.device = torch.device("cpu")
+    device: torch.device | None = None  # None: the CUDA card
 
     def __post_init__(self):
-        self.device = torch.device(self.device)
+        self.device = resolve_device(self.device)
 
     @property
     def shape(self):
@@ -212,10 +236,10 @@ class Laplacian3D(LinearOperator):
     ny: int
     nz: int
     dtype: torch.dtype = torch.float64
-    device: torch.device = torch.device("cpu")
+    device: torch.device | None = None  # None: the CUDA card
 
     def __post_init__(self):
-        self.device = torch.device(self.device)
+        self.device = resolve_device(self.device)
 
     @property
     def shape(self):
@@ -238,28 +262,111 @@ class Laplacian3D(LinearOperator):
         return torch.full((self.n,), 6.0, dtype=self.dtype, device=self.device)
 
 
+# Effective bandwidth of DiaOperator.apply on the card, in bytes of the
+# router's DIA model (per diagonal and row: 4 B of data + b = 8 columns of
+# 4 B of X) per second.  Fit by tools/fit_router.py to the f32, b = 8
+# apply times of fem_elasticity_3d(42) (99 diagonals, 1.440 ms: 577 GB/s)
+# and the assembled 512² Laplacian (5 diagonals, 0.196 ms: 240 GB/s) on
+# an NVIDIA H100 80GB HBM3, 700.00 W.
+_DIA_BYTES_PER_S = 5.362e11
+
+
+def _pick_sparse_format(A, dtype, device):
+    """Choose the layout for a scipy sparse matrix bound for ``device``;
+    returns (format, packed-BSR tile plan or None).
+
+    Banded matrices (≤ 64 populated diagonals) go to DIA.  On a CUDA
+    device, for f32 or f64 (the dtypes of the CUDA kernel), DIA and the
+    packed-BSR kernel are compared by their time models, and a block-
+    structured matrix with adequate tile fill goes to BSR.  Otherwise DIA
+    while the matrix fits it, HYB under row-length skew, ELL for the rest.
+    On the CPU this is the JAX package's route off the TPU."""
+    from .bsr import _tile_census, modeled_bsr_apply_seconds, pick_tile_plan
+    from .dia import count_diagonals
+
+    n = A.shape[0]
+    ndiags = count_diagonals(A)
+    if ndiags <= 64:
+        return "dia", None
+    # the operator is built at dtype or, when unspecified, A's own dtype
+    dt = dtype if dtype is not None else torch.from_numpy(
+        np.zeros(0, dtype=A.dtype)).dtype
+    if torch.device(device).type == "cuda" and dt in (torch.float32,
+                                                      torch.float64):
+        # one plan computation, threaded through to from_scipy
+        plan = pick_tile_plan(A)
+        bsr_s = modeled_bsr_apply_seconds(A, plan=plan)
+        if ndiags <= 256:  # DiaOperator's max_diags guard
+            dia_s = ndiags * n * (4 + 4 * 8) / _DIA_BYTES_PER_S
+            if dia_s < bsr_s:
+                return "dia", None
+        # probe fill at the tuned height
+        bm = plan[0]
+        _, ukey, _, _, _, _, _ = _tile_census(A.tocoo(), bm, 128)
+        fill = A.nnz / max(len(ukey) * bm * 128, 1)
+        if fill >= 0.02:
+            return "bsr", plan
+    # no kernel tier: DIA's shifted multiply-adds beat the gathers of ELL
+    # whenever the matrix fits the diagonal format at all
+    if ndiags <= 256:
+        return "dia", None
+    # ELL pads every row to the longest: under row-length skew route to
+    # HYB (capped ELL + COO overflow)
+    row_nnz = np.diff(A.tocsr().indptr)
+    if row_nnz.size and row_nnz.max() > 4 * max(row_nnz.mean(), 1.0):
+        return "hyb", None
+    return "ell", None
+
+
+_FORMATS = ("auto", "dia", "bsr", "ell", "hyb", "coo")
+
+
+def _scipy_from_torch_sparse(A):
+    """A torch sparse COO or CSR matrix as scipy CSR, through host COO
+    triplets (explicit zeros dropped, duplicates summed)."""
+    import scipy.sparse as sp
+
+    if A.ndim != 2 or A.dense_dim() != 0:
+        raise TypeError(
+            "batched or block sparse tensors are not supported — pass an "
+            "unbatched 2-D sparse matrix"
+        )
+    C = A.to_sparse_coo().coalesce().cpu()
+    idx = C.indices().numpy()
+    dat = C.values().numpy()
+    live = dat != 0
+    return sp.coo_matrix((dat[live], (idx[0, live], idx[1, live])),
+                         shape=tuple(A.shape)).tocsr()
+
+
 def as_operator(A, dtype=None, device=None, format: str = "auto") -> LinearOperator:
-    """Coerce a user-supplied matrix into a LinearOperator on ``device``
-    (default: the CPU).
+    """Coerce a user-supplied matrix into a LinearOperator on ``device``.
 
     Accepts: LinearOperator (returned as-is, cast to ``dtype`` if it
-    differs; it keeps its own device), a tensor or numpy array (2-D dense,
-    1-D diagonal), or a scipy sparse matrix.  An exactly diagonal sparse
-    matrix becomes a DiagonalOperator; every other one the packed
-    block-sparse operator ("auto" or "bsr").  The DIA, ELL, HYB and COO
-    layouts are not ported yet.
+    differs; it keeps its own device), a tensor (it keeps its own device
+    unless ``device`` is given; a torch sparse COO/CSR matrix is routed
+    through scipy triplets so that the layout choice applies), a numpy
+    array (2-D dense, 1-D diagonal), or a scipy sparse matrix.  Host data
+    goes to ``device``, by default the CUDA card: pass ``device="cpu"`` for
+    the CPU.
+
+    An exactly diagonal sparse matrix becomes a DiagonalOperator; any other
+    picks its layout with ``format="auto"`` (``_pick_sparse_format``), or
+    takes the one forced by format="dia" | "bsr" | "ell" | "hyb" | "coo".
     """
     if isinstance(A, LinearOperator):
         if dtype is not None and A.dtype != dtype:
             return cast_operator(A, dtype)
         return A
-    device = torch.device(device) if device is not None else torch.device("cpu")
+    if format not in _FORMATS:
+        raise ValueError(f"unknown format {format!r}; one of {_FORMATS}")
+    if isinstance(A, torch.Tensor):
+        if device is None:
+            device = A.device
+        if A.layout in (torch.sparse_coo, torch.sparse_csr):
+            A = _scipy_from_torch_sparse(A)
+    device = resolve_device(device)
     if hasattr(A, "tocsr"):  # scipy.sparse
-        if format not in ("auto", "bsr"):
-            raise NotImplementedError(
-                f"format={format!r} is not ported yet: the DIA/ELL/HYB/COO "
-                "layouts are ROADMAP.md section A, item 1"
-            )
         if A.shape[0] != A.shape[1]:
             raise ValueError(f"operator must be square, got {A.shape}")
         if format == "auto" and A.nnz <= A.shape[0]:
@@ -270,13 +377,35 @@ def as_operator(A, dtype=None, device=None, format: str = "auto") -> LinearOpera
             if coo.nnz == 0 or bool(np.all(coo.row == coo.col)):
                 d = np.zeros(A.shape[0], dtype=coo.data.dtype)
                 np.add.at(d, coo.row, coo.data)
-                t = torch.as_tensor(d, device=device)
-                return DiagonalOperator(t if dtype is None else t.to(dtype))
-        from .bsr import BlockSparseOperator
+                return DiagonalOperator(to_device(d, dtype, device))
+        plan = None
+        fmt = format
+        if format == "auto":
+            fmt, plan = _pick_sparse_format(A, dtype, device)
+        if fmt == "dia":
+            from .dia import DiaOperator
 
-        return BlockSparseOperator.from_scipy(
-            A, dtype=dtype or torch.float32, device=device
-        )
+            return DiaOperator.from_scipy(A, dtype=dtype, device=device)
+        if fmt == "bsr":
+            from .bsr import BlockSparseOperator
+
+            return BlockSparseOperator.from_scipy(
+                A, dtype=dtype or torch.float32,
+                bm=plan[0] if plan else None,
+                unroll=plan[1] if plan else None, device=device,
+            )
+        if fmt == "hyb":
+            from .coo import HybOperator
+
+            return HybOperator.from_scipy(A, dtype=dtype, device=device)
+        if fmt == "coo":
+            from .coo import CooOperator
+
+            return CooOperator.from_scipy(A, dtype=dtype, device=device)
+        from .ell import SparseEllOperator
+
+        return SparseEllOperator.from_scipy(A.tocsr(), dtype=dtype,
+                                            device=device)
     T = torch.as_tensor(A, device=device)
     if dtype is not None:
         T = T.to(dtype)

@@ -12,10 +12,10 @@ from __future__ import annotations
 import torch
 
 
-def device_free_memory(device=None) -> int | None:
+def device_free_memory(device) -> int | None:
     """Free bytes on a CUDA device, or None ("unknown") for any other
     device (the CPU)."""
-    device = torch.device(device) if device is not None else torch.device("cpu")
+    device = torch.device(device)
     if device.type != "cuda":
         return None
     free, _total = torch.cuda.mem_get_info(device)
@@ -36,7 +36,8 @@ def krylov_capacity(
 
     Mirrors gpu_buffer_size: budget = frac·free − working set, in units of
     one basis block; returns a column count (multiple of block_size),
-    or None when free memory is unknown."""
+    or None when free memory is unknown.  ``device`` is read only when
+    ``free_bytes`` is not given."""
     if free_bytes is None:
         free_bytes = device_free_memory(device)
     if free_bytes is None:
@@ -50,8 +51,8 @@ def krylov_capacity(
 
 
 def clamp_kryl_dim(cfg_max: int, n: int, block_size: int, basis_dtype,
-                   compute_dtype, budget_fraction: float = 0.8,
-                   device=None) -> int:
+                   compute_dtype, budget_fraction: float = 0.8, *,
+                   device) -> int:
     """Final Krylov cap = min(config cap, n rounded up to b, memory
     capacity)."""
     b = block_size

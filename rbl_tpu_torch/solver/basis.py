@@ -20,7 +20,7 @@ import torch
 class BasisStore:
     """Preallocated, zero-padded (n, max_cols) basis buffer."""
 
-    def __init__(self, n, block_size, max_cols, dtype, device="cpu",
+    def __init__(self, n, block_size, max_cols, dtype, device,
                  device_cap_cols=None):
         if device_cap_cols is not None:
             raise NotImplementedError(

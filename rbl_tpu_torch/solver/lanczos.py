@@ -355,7 +355,7 @@ def _repair_block(store, Qprev, Qold, B_s, rank, lock_basis, gen, qr_method):
     return Qnew, B_new
 
 
-def _rayleigh_refine(op: LinearOperator, X, theta0, cdt):
+def _rayleigh_refine(op: LinearOperator, X, theta0, cdt, width=None):
     """Shifted Rayleigh-quotient refinement of converged Ritz values:
     θ = θ₀ + xᵀ(Ax − θ₀x)/xᵀx.  The correction contracts residual-scale
     quantities, so the refined value carries O(eps·|θ|) rounding instead of
@@ -363,10 +363,17 @@ def _rayleigh_refine(op: LinearOperator, X, theta0, cdt):
 
     Also returns the TRUE relative residual norms ‖A·x − θx‖/‖x‖ of the
     refined pairs — unlike the Lanczos bound ‖B·y‖ it stays honest when the
-    basis degraded."""
+    basis degraded.
+
+    ``width`` applies A to at most that many columns at a time (the
+    solve's block width, which every operator took during the sweep: the
+    panel layout refuses an X above 8 MB); None applies it to all k."""
     Xc = X.to(cdt)
     theta0 = theta0.to(device=Xc.device, dtype=cdt)
-    Y = op.apply(Xc) - Xc * theta0[None, :]
+    k = Xc.shape[1]
+    w = width or max(k, 1)
+    AX = torch.cat([op.apply(Xc[:, j : j + w]) for j in range(0, k, w)], dim=1)
+    Y = AX - Xc * theta0[None, :]
     num = torch.diagonal(gram(Xc, Y))
     den = torch.diagonal(gram(Xc, Xc))
     theta = theta0 + num / den

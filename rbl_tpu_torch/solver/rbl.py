@@ -64,7 +64,7 @@ def rbl(
     cfg = cfg or RBLConfig()
     if b is not None:
         cfg = cfg.replace(block_size=b)
-    op = as_operator(A, dtype=cfg.compute_dtype, device=cfg.resolved_device())
+    op = as_operator(A, dtype=cfg.compute_dtype, device=cfg.device)
     n = op.n
     if not (0 < k <= n):
         raise ValueError(f"k={k} out of range for n={n}")
@@ -172,7 +172,7 @@ def _rbl_impl(op, k, cfg, compute_eigenvectors, timer, v0=None, deflate=None):
         # The TRUE residual norms it computes along the way replace the
         # Lanczos bounds in the result.
         D_t, res_t = _rayleigh_refine(
-            op, V, torch.as_tensor(D), cdt=cfg.compute_dtype
+            op, V, torch.as_tensor(D), cdt=cfg.compute_dtype, width=b
         )
         D = D_t.cpu().numpy()
         bounds_desc = res_t.cpu().numpy()

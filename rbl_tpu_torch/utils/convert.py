@@ -12,8 +12,11 @@ from typing import Any
 import numpy as np
 import torch
 
-from ..config import RBLConfig
+from ..config import RBLConfig, resolve_device
 from ..ops.spmm.bsr import BlockSparseOperator
+from ..ops.spmm.coo import CooOperator, HybOperator
+from ..ops.spmm.dia import DiaOperator
+from ..ops.spmm.ell import SparseEllOperator
 from ..ops.spmm.operator import DenseOperator, DiagonalOperator, Laplacian2D
 
 # RBLConfig fields of the JAX package that exist only for the TPU: dropped.
@@ -69,14 +72,20 @@ def config_from_fields(fields: dict) -> RBLConfig:
 
 
 def operator_from_arrays(kind: str, arrays: dict[str, np.ndarray],
-                         static: dict[str, Any], device="cpu"):
+                         static: dict[str, Any], device=None):
     """The port's operator ``kind`` from the JAX operator's array fields
-    (``arrays``) and static fields (``static``), on ``device``.
+    (``arrays``) and static fields (``static``), on ``device`` (default:
+    the CUDA card).
 
     kind: "BlockSparseOperator" (arrays tile_cols, hcount, rptr, vals, diag;
-    static _n, H, bm, bk, unroll), "DiagonalOperator" (diag),
-    "DenseOperator" (mat) or "Laplacian2D" (static nx, ny, _dtype)."""
-    dev = torch.device(device)
+    static _n, H, bm, bk, unroll, and panel, panel_gather for the panel
+    layout), "DiaOperator" (data; offsets, _n), "SparseEllOperator" (cols,
+    vals; _n), "CooOperator" (rows, cols, vals; _n, _chunk),
+    "HybOperator" (the ELL part's arrays as ell_cols, ell_vals and the COO
+    part's as coo_rows, coo_cols, coo_vals; _n, _chunk),
+    "DiagonalOperator" (diag), "DenseOperator" (mat) or "Laplacian2D"
+    (static nx, ny, _dtype)."""
+    dev = resolve_device(device)
 
     def t(name):
         return torch.as_tensor(np.array(arrays[name]), device=dev)
@@ -87,6 +96,27 @@ def operator_from_arrays(kind: str, arrays: dict[str, np.ndarray],
             vals=t("vals"), diag=t("diag") if arrays.get("diag") is not None else None,
             _n=int(static["_n"]), H=int(static["H"]), bm=int(static["bm"]),
             bk=int(static["bk"]), unroll=int(static["unroll"]),
+            panel=bool(static.get("panel", False)),
+            panel_gather=str(static.get("panel_gather", "swap")),
+        )
+    if kind == "DiaOperator":
+        return DiaOperator(data=t("data"),
+                           offsets=tuple(int(o) for o in static["offsets"]),
+                           _n=int(static["_n"]))
+    if kind == "SparseEllOperator":
+        return SparseEllOperator(cols=t("cols"), vals=t("vals"),
+                                 _n=int(static["_n"]))
+    if kind == "CooOperator":
+        return CooOperator(rows=t("rows"), cols=t("cols"), vals=t("vals"),
+                           _n=int(static["_n"]),
+                           _chunk=int(static.get("_chunk", 1 << 22)))
+    if kind == "HybOperator":
+        n = int(static["_n"])
+        return HybOperator(
+            ell=SparseEllOperator(cols=t("ell_cols"), vals=t("ell_vals"), _n=n),
+            coo=CooOperator(rows=t("coo_rows"), cols=t("coo_cols"),
+                            vals=t("coo_vals"), _n=n,
+                            _chunk=int(static.get("_chunk", 1 << 22))),
         )
     if kind == "DiagonalOperator":
         return DiagonalOperator(t("diag"))

@@ -14,11 +14,15 @@ import torch
 
 torch.set_num_threads(2)
 
+# The port's entry points run on the CUDA card unless asked for the CPU:
+# every CPU test asks.
+CPU = "cpu"
+
 BSR_ARRAYS = ("tile_cols", "hcount", "rptr", "vals", "diag")
-BSR_STATIC = ("_n", "H", "bm", "bk", "unroll")
+BSR_STATIC = ("_n", "H", "bm", "bk", "unroll", "panel", "panel_gather")
 
 
-def bsr_from_jax(jax_op, device="cpu"):
+def bsr_from_jax(jax_op, device=CPU):
     """The port's BlockSparseOperator holding the JAX operator's arrays."""
     from rbl_tpu_torch.utils.convert import operator_from_arrays
 

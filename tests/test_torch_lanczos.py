@@ -14,7 +14,7 @@ import jax.numpy as jnp
 
 import rbl_tpu
 import rbl_tpu_torch as rtt
-from _torch_parity import rel_err
+from _torch_parity import CPU, rel_err
 from rbl_tpu.solver import lanczos as jl
 from rbl_tpu_torch.solver import lanczos as tl
 from rbl_tpu_torch.solver.basis import BasisStore
@@ -115,7 +115,7 @@ def test_poll_schedule_matches_jax():
 
 
 def test_basis_store_rewind_keeps_zero_padding():
-    st = BasisStore(50, 2, max_cols=10, dtype=torch.float64)
+    st = BasisStore(50, 2, max_cols=10, dtype=torch.float64, device=CPU)
     for c in range(4):
         st.append(torch.full((50, 2), float(c + 1), dtype=torch.float64))
     blk = st.read_block(4, 2)
@@ -126,12 +126,12 @@ def test_basis_store_rewind_keeps_zero_padding():
     with pytest.raises(IndexError):
         st.read_block(2, 2)
     with pytest.raises(NotImplementedError):
-        BasisStore(50, 2, 10, torch.float64, device_cap_cols=4)
+        BasisStore(50, 2, 10, torch.float64, CPU, device_cap_cols=4)
 
 
 def test_fresh_directions_and_start_block():
     M, basis, Qprev, _, _, lock = _state(seed=5)
-    st = BasisStore(N, B, max_cols=40, dtype=torch.float64)
+    st = BasisStore(N, B, max_cols=40, dtype=torch.float64, device=CPU)
     for c in range(0, 12, B):
         st.append(_t(basis[:, c : c + B]))
     g = torch.Generator().manual_seed(0)
@@ -155,7 +155,7 @@ def test_recover_eigvec_bf16_basis_rounds_coefficients_like_jax():
     rng = np.random.default_rng(7)
     basis = rng.standard_normal((300, 16)).astype(np.float32)
     Vk = rng.standard_normal((16, 3))
-    st = BasisStore(300, 4, max_cols=20, dtype=torch.bfloat16)
+    st = BasisStore(300, 4, max_cols=20, dtype=torch.bfloat16, device=CPU)
     for c in range(0, 16, 4):
         st.append(torch.from_numpy(basis[:, c : c + 4]))
     got = tl.recover_eigvec(st, Vk)

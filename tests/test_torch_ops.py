@@ -17,7 +17,7 @@ import jax.numpy as jnp
 
 import rbl_tpu
 import rbl_tpu_torch as rtt
-from _torch_parity import rel_err
+from _torch_parity import CPU, rel_err
 from rbl_tpu.ops import band as jband, contract as jcontract, eig as jeig
 from rbl_tpu.ops import qr as jqr, reorth as jreorth
 from rbl_tpu.parallel import memory as jmemory
@@ -218,7 +218,7 @@ def test_laplacian_operators_match_jax():
         X = _rand((n, 3), 15)
         kw = dict(zip(("nx", "ny", "nz"), dims))
         want = np.asarray(Jop(**kw, _dtype=jnp.float64).apply(jnp.asarray(X)))
-        op = Top(*dims, dtype=torch.float64)
+        op = Top(*dims, dtype=torch.float64, device=CPU)
         np.testing.assert_allclose(op.apply(_t(X)).numpy(), want, rtol=0, atol=1e-13)
         assert op.shape == (n, n)
         np.testing.assert_array_equal(op.diagonal().numpy(),
@@ -245,32 +245,46 @@ def test_dense_diagonal_affine_match_jax():
 
 def test_as_operator_routes():
     d = np.arange(1.0, 51.0)
-    assert isinstance(rtt.as_operator(sp.diags(d).tocsr()), rtt.DiagonalOperator)
+    assert isinstance(rtt.as_operator(sp.diags(d).tocsr(), device=CPU),
+                      rtt.DiagonalOperator)
     A = sp.random(200, 200, density=0.05, random_state=0)
     A = (A + A.T).tocsr()
-    op = rtt.as_operator(A, dtype=torch.float64)
+    op = rtt.as_operator(A, dtype=torch.float64, device=CPU, format="bsr")
     assert isinstance(op, rtt.BlockSparseOperator) and op.dtype == torch.float64
-    assert isinstance(rtt.as_operator(np.eye(5)), rtt.DenseOperator)
-    assert isinstance(rtt.as_operator(d), rtt.DiagonalOperator)
-    cast = rtt.as_operator(rtt.Laplacian2D(4, 4), dtype=torch.float32)
+    assert isinstance(rtt.as_operator(np.eye(5), device=CPU), rtt.DenseOperator)
+    assert isinstance(rtt.as_operator(d, device=CPU), rtt.DiagonalOperator)
+    cast = rtt.as_operator(rtt.Laplacian2D(4, 4, device=CPU), dtype=torch.float32)
     assert cast.dtype == torch.float32 and cast.apply(torch.ones(16, 2)).dtype == torch.float32
-    for fmt in ("dia", "ell", "hyb", "coo"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            rtt.as_operator(A, format=fmt)
+    # every forced format builds its operator, which applies A (DIA takes
+    # at most 256 diagonals: a band of 41 here)
+    X = _rand((200, 3), 22)
+    band = sp.triu(sp.tril(A, 20), -20).tocsr()
+    for fmt, cls in (("dia", rtt.DiaOperator), ("ell", rtt.SparseEllOperator),
+                     ("hyb", rtt.HybOperator), ("coo", rtt.CooOperator),
+                     ("bsr", rtt.BlockSparseOperator)):
+        M = band if fmt == "dia" else A
+        op = rtt.as_operator(M, dtype=torch.float64, device=CPU, format=fmt)
+        assert isinstance(op, cls) and op.device.type == "cpu", fmt
+        assert rel_err(op.apply(_t(X)).numpy(), M @ X) < TOL, fmt
+    # auto on the CPU: > 256 diagonals, no row-length skew → ELL
+    assert isinstance(rtt.as_operator(A, device=CPU), rtt.SparseEllOperator)
+    with pytest.raises(ValueError, match="format"):
+        rtt.as_operator(A, device=CPU, format="csr")
 
 
 def test_operator_from_arrays_kinds():
     d = _rand(30, 19)
     M = _rand((30, 30), 20)
     X = _rand((30, 2), 21)
-    diag = operator_from_arrays("DiagonalOperator", {"diag": d}, {})
-    dense = operator_from_arrays("DenseOperator", {"mat": M}, {})
-    lap = operator_from_arrays("Laplacian2D", {}, {"nx": 5, "ny": 6, "_dtype": jnp.float32})
+    diag = operator_from_arrays("DiagonalOperator", {"diag": d}, {}, CPU)
+    dense = operator_from_arrays("DenseOperator", {"mat": M}, {}, CPU)
+    lap = operator_from_arrays("Laplacian2D", {}, {"nx": 5, "ny": 6, "_dtype": jnp.float32},
+                               CPU)
     assert rel_err(diag.apply(_t(X)).numpy(), d[:, None] * X) < TOL
     assert rel_err(dense.apply(_t(X)).numpy(), M @ X) < TOL
     assert lap.dtype == torch.float32 and lap.shape == (30, 30)
     with pytest.raises(ValueError):
-        operator_from_arrays("DiaOperator", {}, {})
+        operator_from_arrays("RectCooOperator", {}, {}, CPU)
 
 
 def test_config_defaults_and_conversion():
@@ -308,4 +322,5 @@ def test_krylov_capacity_matches_jax():
                                       free_bytes=free)
         assert got == want
     assert tmemory.device_free_memory("cpu") is None
-    assert tmemory.clamp_kryl_dim(1400, 1000, 8, torch.float64, torch.float64) == 1000
+    assert tmemory.clamp_kryl_dim(1400, 1000, 8, torch.float64, torch.float64,
+                                  device=CPU) == 1000

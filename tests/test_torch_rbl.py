@@ -18,7 +18,7 @@ import torch
 
 import rbl_tpu
 import rbl_tpu_torch as rtt
-from _torch_parity import random_sym
+from _torch_parity import CPU, random_sym
 from rbl_tpu_torch.ops.spmm import bsr as tbsr
 from rbl_tpu_torch.utils.fem import fem_elasticity_3d
 
@@ -63,9 +63,9 @@ def test_fem_through_block_sparse_operator():
     packed block-sparse operator, in f64, to the 1e-13 gate; the Ritz
     vectors are orthonormal with small true residuals."""
     A = fem_elasticity_3d(6)
-    op = rtt.as_operator(A, dtype=torch.float64)
+    op = rtt.as_operator(A, dtype=torch.float64, device=CPU, format="bsr")
     assert isinstance(op, rtt.BlockSparseOperator)
-    res = rtt.rbl(A, 8, 4)
+    res = rtt.rbl(op, 8, 4)
     w = np.linalg.eigvalsh(A.toarray())[::-1][:8]
     assert res.converged
     assert np.abs((res.eigenvalues - w) / w).max() < 1e-13
@@ -81,8 +81,9 @@ def test_bench_shaped_f32_laplacian_against_analytic():
     nx = 32
     cfg = rtt.RBLConfig(block_size=16, basis_dtype=torch.bfloat16,
                         compute_dtype=torch.float32, qr_method="cholqr2",
-                        tol=1e-3, max_kryl_dim=256, eig_poll_cadence=16)
-    res = rtt.rbl(rtt.Laplacian2D(nx, nx, dtype=torch.float32), 20, cfg=cfg)
+                        tol=1e-3, max_kryl_dim=256, eig_poll_cadence=16,
+                        device=CPU)
+    res = rtt.rbl(rtt.Laplacian2D(nx, nx, dtype=torch.float32, device=CPU), 20, cfg=cfg)
     ev1 = 2 - 2 * np.cos(np.pi * np.arange(1, nx + 1) / (nx + 1))
     lam = np.sort(np.add.outer(ev1, ev1).ravel())[::-1][:20]
     assert res.eigenvectors.dtype == torch.float32
@@ -137,7 +138,7 @@ def test_eigenvalues_match_jax_rbl():
     compile)."""
     A = random_sym(400, 0.03, seed=11) + sp.diags(np.linspace(0.0, 3.0, 400))
     jres = rbl_tpu.rbl(A.toarray(), 6, 3)
-    tres = rtt.rbl(A.tocsr(), 6, 3)
+    tres = rtt.rbl(A.tocsr(), 6, 3, cfg=rtt.RBLConfig(device=CPU))
     assert jres.converged and tres.converged
     np.testing.assert_allclose(tres.eigenvalues, jres.eigenvalues, rtol=1e-12)
     assert np.max(tres.residual_bounds) < 1e-6
@@ -169,7 +170,7 @@ def test_deflate_and_v0():
 
 def test_cpu_solve_never_counts_kernel_launches():
     before = (tbsr.bsr_spmm_packed_resident.launches, tbsr.bsr_spmm_packed.launches)
-    rtt.rbl(fem_elasticity_3d(3), 4, 4)
+    rtt.rbl(rtt.as_operator(fem_elasticity_3d(3), device=CPU, format="bsr"), 4, 4)
     assert (tbsr.bsr_spmm_packed_resident.launches, tbsr.bsr_spmm_packed.launches) == before
 
 
@@ -180,3 +181,28 @@ def test_import_leaves_jax_out():
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
                           text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
+
+
+def test_host_matrix_without_a_device_raises_instead_of_solving(monkeypatch):
+    """Entry points run on the CUDA card unless asked for the CPU: with no
+    card (as on a CPU-only machine) a scipy matrix and no device raise,
+    and nothing is solved on the host."""
+    from rbl_tpu_torch.solver import rbl as trbl
+
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 0)
+    solved = []
+    monkeypatch.setattr(trbl, "_rbl_impl", lambda *a, **kw: solved.append(1))
+    A = random_sym(100, 0.05, seed=3)
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        rtt.rbl(A, 4, 4)
+    for build in (lambda: rtt.as_operator(A), lambda: rtt.Laplacian2D(4, 4),
+                  lambda: rtt.BlockSparseOperator.from_scipy(A),
+                  lambda: rtt.DiaOperator.from_scipy(sp.eye(5)),
+                  lambda: rtt.SparseEllOperator.from_scipy(A),
+                  lambda: rtt.CooOperator.from_scipy(A),
+                  lambda: rtt.HybOperator.from_scipy(A)):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            build()
+    assert not solved
+    # a tensor keeps its own device; an operator keeps its own
+    assert rtt.as_operator(torch.eye(3)).device.type == "cpu"
