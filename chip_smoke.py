@@ -35,7 +35,15 @@ a user calls, and checks the answers:
      "auto", each held to the ARPACK head; the route "auto" took;
   9. rbl (format="auto", which must pick HYB) on a Chung-Lu power-law
      graph (n = 262,144, mean degree 16, Pareto weights of exponent 2.1),
-     k = 20, b = 8, tol 1e-3, f32, held to scipy's eigsh within 1e-3.
+     k = 20, b = 8, tol 1e-3, f32, held to scipy's eigsh within 1e-3;
+ 10. the tile-stream probes B5-B7 (rbl_tpu_torch.benchmarks.
+     dma_stream_bench): (a) each kernel against its plain version, held to
+     1e-5 · Σ|terms| per entry, at 256 MB of vals for (bm, U) = (16, 8) and
+     (128, 8), at ragged chunk counts (1, 2, 3, 100, 1001; chunks taller
+     than a ring stage) and on fem42's packed vals; (b) the probe's sweep
+     over its default configurations and the card's plan for fem42; (c)
+     the three variants over fem42's own packed vals (phase 3's plan), each
+     beside B1's time on that plan.
 
 The last two lines are the kernels' JSON record and the JSON result.  Any
 failure raises, and the script exits non-zero; it also exits non-zero,
@@ -64,6 +72,12 @@ KERNELS = {
                  "rbl_tpu/ops/spmm/pallas_bsr.py:80"),
     "bsr_spmm_panel": ("rbl_tpu_torch/csrc/bsr_spmm_panel.cu",
                        "rbl_tpu/ops/spmm/pallas_bsr.py:296"),
+    "dma_stream": ("rbl_tpu_torch/csrc/dma_stream.cu",
+                   "benchmarks/dma_stream_bench.py:65"),
+    "dma_stream_dot": ("rbl_tpu_torch/csrc/dma_stream.cu",
+                       "benchmarks/dma_stream_bench.py:83"),
+    "dma_stream_manual": ("rbl_tpu_torch/csrc/dma_stream.cu",
+                          "benchmarks/dma_stream_bench.py:130"),
 }
 TOL = {"float32": 1e-5, "float64": 1e-12}  # max |Y - Y_plain| / max |Y_plain|
 # NVIDIA H100 SXM published peaks (NVIDIA data sheet): HBM bytes/s
@@ -257,6 +271,46 @@ def head_error(w, ref, m: int) -> float:
     return float(np.max(np.abs(a - r) / np.abs(r)))
 
 
+def probe_calls(name: str, vals, xt, bm: int, U: int):
+    """The tile-stream probe ``name`` on vals (S·bm·U, 128): (kernel call,
+    plain call, library call), each taking the seed."""
+    from rbl_tpu_torch.benchmarks import dma_stream_bench as tds
+
+    CH = bm * U
+    S = vals.shape[0] // CH
+    if name == "stream_dot":
+        return (lambda s: tds.make_stream_dot(S, CH, bm, U)(vals, s, xt),
+                lambda s: tds.stream_dot_reference(vals, s, xt, S=S, CH=CH, bm=bm, U=U),
+                lambda s: s + (vals.view(-1, bm, 128) @ xt.T).sum())
+    make, plain = {"stream": (tds.make_stream, tds.stream_reference),
+                   "manual": (tds.make_manual, tds.manual_reference)}[name]
+    return (lambda s: make(S, CH)(vals, s), lambda s: plain(vals, s, S=S, CH=CH),
+            lambda s: s + vals.sum(0))
+
+
+def check_probe(name: str, vals, seed, xt, bm: int, U: int) -> float:
+    """A probe kernel and its plain version on the same card tensors, each
+    held to 1e-5 · Σ|terms| per entry (f64 reference), and the kernel to
+    itself bit for bit; returns max |kernel − plain|."""
+    import torch
+
+    from rbl_tpu_torch.benchmarks import dma_stream_bench as tds
+
+    kern, plain, _ = probe_calls(name, vals, xt, bm, U)
+    out, again, out_p = kern(seed), kern(seed), plain(seed)
+    ref, scale = tds.reference_f64(name, vals, seed, xt if name == "stream_dot" else None)
+    torch.cuda.synchronize()
+    label = f"{name} S={vals.shape[0] // (bm * U)} bm={bm} U={U}"
+    for who, y in (("kernel", out), ("plain", out_p)):
+        ratio = tds.error_ratio(y, ref, scale)
+        if not ratio <= 1.0:
+            raise AssertionError(f"{label}: {who} off by {ratio:.2f}× "
+                                 f"{tds.TOL:g}·Σ|terms|")
+    if not torch.equal(out, again):
+        raise AssertionError(f"{label}: two runs of the kernel differ")
+    return float((out - out_p).abs().max())
+
+
 def reset_launches(*fns):
     for f in fns:
         f.launches = 0
@@ -270,6 +324,7 @@ def main() -> int:
               "script runs on a CUDA card only", file=sys.stderr)
         return 2
     import rbl_tpu_torch as rt
+    from rbl_tpu_torch.benchmarks import dma_stream_bench as tds
     from rbl_tpu_torch.ops.spmm import _kernels, bsr
     from rbl_tpu_torch.ops.spmm.operator import cast_operator
     from rbl_tpu_torch.utils.fem import fem_elasticity_3d
@@ -282,6 +337,7 @@ def main() -> int:
           f"device {torch.cuda.get_device_name(0)}")
     packed = (bsr.bsr_spmm_packed_resident, bsr.bsr_spmm_packed)
     every = (*packed, bsr.bsr_spmm, bsr.bsr_spmm_panel)
+    probes = (tds.dma_stream, tds.dma_stream_dot, tds.dma_stream_manual)
 
     # --- 2. build -----------------------------------------------------------
     t0 = time.perf_counter()
@@ -365,6 +421,7 @@ def main() -> int:
     for entry, b in (("bsr_spmm_packed_resident", 8), ("bsr_spmm_packed", 16)):
         Xl = padded_x(op32, b, seed=b)[: A.shape[0]]
         kernels[entry]["library_ms"] = time_ms(lambda: torch.sparse.mm(csr32, Xl))
+    fem_op = op32  # phase 10 streams B1's own tiles
     del op32
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
@@ -559,6 +616,73 @@ def main() -> int:
           f"{build_s:.1f} s, wall {wall:.3f} s, max rel err vs eigsh on the "
           f"first {compared} {err:.3e} (eigsh {eigsh_s:.1f} s on the host), "
           f"kryl_dim {res.kryl_dim}, converged {res.converged}  [{card}]")
+
+    # --- 10. the tile-stream probes (B5-B7) ---------------------------------
+    t10 = time.perf_counter()
+    g = torch.Generator(device="cuda")
+    seed0 = torch.zeros((8, 128), dtype=torch.float32, device="cuda")
+    xt = torch.randn((8, 128), generator=g.manual_seed(1), device="cuda")
+    seed = torch.randn((8, 128), generator=g.manual_seed(2), device="cuda")
+    names = {"stream": "dma_stream", "stream_dot": "dma_stream_dot",
+             "manual": "dma_stream_manual"}
+    # (a) kernels against their plain versions
+    checked = []
+    for S, bm, U in ((None, 16, 8), (None, 128, 8), (1, 8, 2), (2, 8, 2),
+                     (3, 8, 2), (3, 40, 5), (2, 125, 8), (100, 8, 2),
+                     (1001, 16, 4)):
+        CH = bm * U
+        S = S or (256 * 2**20) // (128 * 4) // CH
+        vals = torch.randn((S * CH, 128), generator=g.manual_seed(S), device="cuda")
+        for name in tds.VARIANTS:
+            check_probe(name, vals, seed, xt, bm, U)
+        checked.append(f"S={S} ({bm}, {U})")
+        del vals
+    fem_vals, fem_plan = fem_op.vals, (fem_op.bm, fem_op.unroll)
+    fem_bm, fem_U = fem_plan
+    fem_flat = fem_vals.view(-1, 128)
+    for name in tds.VARIANTS:
+        _, plain, library = probe_calls(name, fem_flat, xt, fem_bm, fem_U)
+        moved = nbytes(fem_flat, seed, seed) + (nbytes(xt) if name == "stream_dot" else 0)
+        ops = fem_flat.numel() * (16 if name == "stream_dot" else 1)
+        kernels[names[name]] = dict(
+            max_abs_err=check_probe(name, fem_flat, seed, xt, fem_bm, fem_U),
+            plain_ms=time_ms(lambda: plain(seed), reps=3),
+            library_ms=time_ms(lambda: library(seed)), **bound(moved, ops))
+    print(f"B5-B7 against their plain versions within {tds.TOL:g}·Σ|terms|, bit "
+          f"for bit from run to run: {', '.join(checked)}, and fem42's vals")
+    # (b) the probe's sweep, (c) fem42's own tile stream: the path
+    reset_launches(*probes)
+    rows = tds.sweep(256, 8, (*tds.DEFAULT_CONFIGS, fem_plan), "cuda")
+    # B1 (b=8) and B2 (b=16) on the same plan, timed as the probe times
+    # its kernels
+    spmm_ms = {}
+    for entry, b in (("bsr_spmm_packed_resident", 8), ("bsr_spmm_packed", 16)):
+        X = padded_x(fem_op, b, seed=b)
+        spmm_ms[b] = tds.kernel_ms(lambda: getattr(bsr, entry)(
+            fem_op.tile_cols, fem_op.hcount, fem_op.rptr, fem_op.vals, X,
+            bm=fem_bm, bk=fem_op.bk, H=fem_op.H, unroll=fem_U))
+    T = fem_vals.shape[0]
+    print(f"fem42 packed vals, plan {fem_plan}: {T} tiles, "
+          f"{fem_vals.numel() * 4 / 1e6:.1f} MB f32, S={T // fem_U} chunks of "
+          f"{fem_bm * fem_U} rows")
+    for row in tds.probe(fem_flat, seed0, xt, bm=fem_bm, U=fem_U, reps=8):
+        kernels[names[row["variant"]]]["ms"] = row["kernel_ms"]
+        print(f"fem42 {row['variant']}: kernel {row['kernel_ms']:.4f} ms "
+              f"({fem_flat.numel() * 4 / row['kernel_ms'] / 1e6:.0f} GB/s, "
+              f"{row['bound_share']:.0%} of its {row['bound_ms']:.4f} ms bound), "
+              f"chained {row['ms']:.4f} ms; on the same plan B1 b=8 "
+              f"{spmm_ms[8]:.4f} ms, B2 b=16 {spmm_ms[16]:.4f} ms (phase 3, a "
+              f"single call each: {kernels['bsr_spmm_packed_resident']['ms']:.4f}, "
+              f"{kernels['bsr_spmm_packed']['ms']:.4f} ms)  [{card}]")
+    torch.cuda.synchronize()
+    for f in probes:
+        launches[f.__name__] = f.launches
+        if f.launches < 1:
+            raise AssertionError(f"the probe never launched {f.__name__}")
+    print(f"probe launches {{{', '.join(f'{f.__name__}: {f.launches}' for f in probes)}}}"
+          f", {len(rows)} sweep rows; phase 10 in {time.perf_counter() - t10:.1f} s")
+    del fem_op, fem_vals, fem_flat
+    torch.cuda.empty_cache()
     print(f"chip_smoke total: {time.perf_counter() - t_start:.1f} s")
 
     record = {"kernels": [

@@ -35,6 +35,9 @@ _ENTRIES = {
        for s in ("f32", "f64")},
     **{f"rbl_bsr_spmm_panel_{s}": ("bsr_spmm_panel", [_p] * 6 + [_i] * 5 + [_p])
        for s in ("f32", "f64")},
+    "rbl_dma_stream_f32": ("dma_stream", [_p] * 4 + [_i] * 2 + [_p]),
+    "rbl_dma_stream_dot_f32": ("dma_stream", [_p] * 5 + [_i] * 4 + [_p]),
+    "rbl_dma_stream_manual_f32": ("dma_stream", [_p] * 4 + [_i] * 2 + [_p]),
 }
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
 
@@ -147,3 +150,39 @@ def launch_bsr_spmm_panel(tile_cols, hcount, rptr, vals_t, X, *, bm: int,
           vals_t.data_ptr(), X.data_ptr(), Y.data_ptr(), nb, bm, bk, b,
           unroll)
     return Y
+
+
+def _stream_buffers(vals, width: int, S: int):
+    """The (8, 128) output and the scratch of the tile-stream probes:
+    S partial rows of ``width`` floats and the second pass's ⌈S/64⌉."""
+    out = torch.empty((8, 128), dtype=torch.float32, device=vals.device)
+    work = torch.empty(((S + -(-S // 64)) * width,), dtype=torch.float32,
+                       device=vals.device)
+    return out, work
+
+
+def launch_stream(vals, seed, *, S: int, CH: int) -> torch.Tensor:
+    """Launch B5 of ``csrc/dma_stream.cu``; returns the (8, 128) output.
+    The caller has checked the operands."""
+    out, work = _stream_buffers(vals, 128, S)
+    _call("rbl_dma_stream_f32", vals.device, vals.data_ptr(), seed.data_ptr(),
+          out.data_ptr(), work.data_ptr(), S, CH)
+    return out
+
+
+def launch_stream_dot(vals, seed, xt, *, S: int, CH: int, bm: int,
+                      U: int) -> torch.Tensor:
+    """Launch B6 of ``csrc/dma_stream.cu``; returns the (8, 128) output."""
+    out, work = _stream_buffers(vals, 1, S)
+    _call("rbl_dma_stream_dot_f32", vals.device, vals.data_ptr(),
+          seed.data_ptr(), xt.data_ptr(), out.data_ptr(), work.data_ptr(),
+          S, CH, bm, U)
+    return out
+
+
+def launch_manual(vals, seed, *, S: int, CH: int) -> torch.Tensor:
+    """Launch B7 of ``csrc/dma_stream.cu``; returns the (8, 128) output."""
+    out, work = _stream_buffers(vals, 128, S)
+    _call("rbl_dma_stream_manual_f32", vals.device, vals.data_ptr(),
+          seed.data_ptr(), out.data_ptr(), work.data_ptr(), S, CH)
+    return out

@@ -14,6 +14,7 @@ import torch
 
 from _torch_parity import messy_sym, random_sym, rel_err
 import rbl_tpu_torch as rtt
+from rbl_tpu_torch.benchmarks import dma_stream_bench as tds
 from rbl_tpu_torch.ops.spmm import bsr as tbsr
 from rbl_tpu_torch.utils.fem import fem_elasticity_3d
 
@@ -123,3 +124,41 @@ def test_cuda_solve_goes_through_the_panel_kernel():
     assert tbsr.bsr_spmm_panel.launches > n0
     w = np.linalg.eigvalsh(A.toarray())[::-1][:8]
     assert np.abs((res.eigenvalues - w) / w).max() < 1e-12
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("variant", ["stream", "stream_dot", "manual"])
+def test_cuda_tile_stream_kernels_match_reference(variant):
+    """B5-B7 against their plain versions, held to 1e-5 · Σ|terms| per
+    entry: one chunk, two and three (the ring's slots reused), chunks
+    taller than a ring stage, fewer chunks than SMs and a count that is
+    not a multiple of the SM count; bit for bit from run to run."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    g = torch.Generator(device="cuda").manual_seed(0)
+    seed = torch.randn((8, 128), generator=g, device="cuda")
+    xt = torch.randn((8, 128), generator=g, device="cuda")
+    launches = getattr(tds, {"stream": "dma_stream", "stream_dot": "dma_stream_dot",
+                             "manual": "dma_stream_manual"}[variant])
+    for S, bm, U in ((1, 8, 2), (2, 8, 2), (3, 8, 2), (3, 40, 5), (2, 125, 8),
+                     (100, 8, 2), (1001, 16, 4)):
+        CH = bm * U
+        vals = torch.randn((S * CH, 128), generator=g, device="cuda")
+        if variant == "stream":
+            fn, plain = tds.make_stream(S, CH), tds.stream_reference
+            args, kw = (vals, seed), dict(S=S, CH=CH)
+        elif variant == "stream_dot":
+            fn, plain = tds.make_stream_dot(S, CH, bm, U), tds.stream_dot_reference
+            args, kw = (vals, seed, xt), dict(S=S, CH=CH, bm=bm, U=U)
+        else:
+            fn, plain = tds.make_manual(S, CH), tds.manual_reference
+            args, kw = (vals, seed), dict(S=S, CH=CH)
+        n0 = launches.launches
+        out = fn(*args)
+        again = fn(*args)
+        ref, scale = tds.reference_f64(variant, *args)
+        torch.cuda.synchronize()
+        assert launches.launches == n0 + 2
+        assert tds.error_ratio(out, ref, scale) <= 1.0
+        assert tds.error_ratio(plain(*args, **kw), ref, scale) <= 1.0
+        assert torch.equal(out, again)

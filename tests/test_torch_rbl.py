@@ -175,12 +175,17 @@ def test_cpu_solve_never_counts_kernel_launches():
 
 
 def test_import_leaves_jax_out():
-    code = ("import sys, rbl_tpu_torch; "
+    """Every module of the port, subpackages included, imports neither
+    jax nor the JAX package."""
+    code = ("import importlib, pkgutil, sys, rbl_tpu_torch as p; "
+            "names = [m.name for m in pkgutil.walk_packages(p.__path__, 'rbl_tpu_torch.')]; "
+            "[importlib.import_module(n) for n in names]; "
+            "assert 'rbl_tpu_torch.benchmarks.dma_stream_bench' in names, names; "
             "bad = [m for m in ('jax', 'rbl_tpu') if m in sys.modules]; "
-            "sys.exit(1 if bad else 0)")
+            "print(len(names), bad); sys.exit(1 if bad else 0)")
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
                           text=True, timeout=120)
-    assert proc.returncode == 0, proc.stderr
+    assert proc.returncode == 0, proc.stdout + proc.stderr
 
 
 def test_host_matrix_without_a_device_raises_instead_of_solving(monkeypatch):
