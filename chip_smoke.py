@@ -26,7 +26,9 @@ a user calls, and checks the answers:
      versions, f32 (1e-5) and f64 (1e-12): B3 on fem42's blocked-ELL at
      bm = 128 (b = 8, 16), B4 on fem42's panel layout of the auto plan
      (b = 8), both on the ragged matrix at b = 5, 8, 16, 40; per-apply
-     times beside the plain version and torch.sparse CSR.  B3's entry
+     times beside the plain version, torch.sparse CSR and the bound (B3
+     at b = 16 too, recorded as its row's b16_* keys); the register
+     block and ring of csrc/bsr_spmm.cu for each timed shape.  B3's entry
      point, which no solve calls, checks phase 5's fem42 Ritz vectors
      (A·V against torch.sparse CSR, and the true residuals);
   7. rbl on fem42 through BlockSparseOperator.from_scipy(..., panel=True)
@@ -43,7 +45,8 @@ a user calls, and checks the answers:
      than a ring stage) and on fem42's packed vals; (b) the probe's sweep
      over its default configurations and the card's plan for fem42; (c)
      the three variants over fem42's own packed vals (phase 3's plan), each
-     beside B1's time on that plan.
+     beside B1's (b = 8) and B2's (b = 16) times on that plan, timed the
+     same way, and their excess over it.
 
 The last two lines are the kernels' JSON record and the JSON result.  Any
 failure raises, and the script exits non-zero; it also exits non-zero,
@@ -471,16 +474,30 @@ def main() -> int:
                 Xl = X[: A.shape[0]]
                 lib_ms = time_ms(lambda: torch.sparse.mm(csr32, Xl))
                 lib = f", torch.sparse CSR {lib_ms:.4f} ms"
+                moved = nbytes(bc, bvd, X) + nb * 128 * b * 4
+                lim = bound(moved, 2 * bvd.numel() * b)
                 if b == 8:
-                    moved = nbytes(bc, bvd, X) + nb * 128 * b * 4
                     kernels["bsr_spmm"] = dict(
                         max_abs_err=abs_err, ms=ms, plain_ms=plain_ms,
-                        library_ms=lib_ms, **bound(moved, 2 * bvd.numel() * b))
+                        library_ms=lib_ms, **lim)
+                else:
+                    kernels["bsr_spmm"].update(
+                        b16_ms=ms, b16_plain_ms=plain_ms, b16_library_ms=lib_ms,
+                        b16_bound_ms=lim["bound_ms"])
+                lib += f", bound {lim['bound_ms']:.4f} ms"
             print(f"bsr_spmm (B3) fem42 blocked-ELL b={b} {dtype}: rel err "
                   f"{rel:.2e}, kernel {ms:.4f} ms, plain {plain_ms:.4f} ms{lib}  "
                   f"[{card}]")
         del bvd
     del bc, bv64
+    plans = [(name, bm, b, dt) for name, bm, b in
+             (("B1", fem_op.bm, 8), ("B2", fem_op.bm, 16), ("B3", 128, 8), ("B3", 128, 16))
+             for dt in (torch.float32, torch.float64)]
+    print("register plans (R rows × C columns a thread, ring stages, shared bytes, "
+          "threads a CTA): " + "; ".join(
+              f"{name} bm={bm} b={b} {str(dt)[6:]}: ({p['R']}, {p['C']}, {p['stages']}, "
+              f"{p['smem_bytes']}, {p['threads']})"
+              for name, bm, b, dt in plans for p in [_kernels.spmm_plan(bm, b, dt)]))
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     pan64 = bsr.BlockSparseOperator.from_scipy(A, dtype=torch.float64, panel=True,
@@ -667,12 +684,14 @@ def main() -> int:
           f"{fem_bm * fem_U} rows")
     for row in tds.probe(fem_flat, seed0, xt, bm=fem_bm, U=fem_U, reps=8):
         kernels[names[row["variant"]]]["ms"] = row["kernel_ms"]
-        print(f"fem42 {row['variant']}: kernel {row['kernel_ms']:.4f} ms "
-              f"({fem_flat.numel() * 4 / row['kernel_ms'] / 1e6:.0f} GB/s, "
+        k_ms = row["kernel_ms"]
+        print(f"fem42 {row['variant']}: kernel {k_ms:.4f} ms "
+              f"({fem_flat.numel() * 4 / k_ms / 1e6:.0f} GB/s, "
               f"{row['bound_share']:.0%} of its {row['bound_ms']:.4f} ms bound), "
-              f"chained {row['ms']:.4f} ms; on the same plan B1 b=8 "
-              f"{spmm_ms[8]:.4f} ms, B2 b=16 {spmm_ms[16]:.4f} ms (phase 3, a "
-              f"single call each: {kernels['bsr_spmm_packed_resident']['ms']:.4f}, "
+              f"chained {row['ms']:.4f} ms; on the same plan, back to back, "
+              f"B1 b=8 {spmm_ms[8]:.4f} ms ({spmm_ms[8] - k_ms:+.4f} over it), "
+              f"B2 b=16 {spmm_ms[16]:.4f} ms ({spmm_ms[16] - k_ms:+.4f}) (phase 3, "
+              f"a single call each: {kernels['bsr_spmm_packed_resident']['ms']:.4f}, "
               f"{kernels['bsr_spmm_packed']['ms']:.4f} ms)  [{card}]")
     torch.cuda.synchronize()
     for f in probes:

@@ -1,6 +1,6 @@
 // Shared pieces of the block-sparse SpMM kernels (bsr_spmm.cu,
 // bsr_spmm_panel.cu): the CTA shape, 16-byte vector loads, FP32/FP64
-// fused multiply-adds and the choice of the per-thread column count.
+// fused multiply-adds and the panel kernel's per-thread column count.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -19,16 +19,10 @@ template <typename T> struct Vec16;
 template <> struct Vec16<float> {
   using type = float4;
   static constexpr int n = 4;
-  __device__ static void unpack(const float4& v, float* out) {
-    out[0] = v.x; out[1] = v.y; out[2] = v.z; out[3] = v.w;
-  }
 };
 template <> struct Vec16<double> {
   using type = double2;
   static constexpr int n = 2;
-  __device__ static void unpack(const double2& v, double* out) {
-    out[0] = v.x; out[1] = v.y;
-  }
 };
 
 __device__ __forceinline__ float fma_rn(float a, float b, float c) {

@@ -33,6 +33,8 @@ _ENTRIES = {
        for s in ("f32", "f64")},
     **{f"rbl_bsr_spmm_ell_{s}": ("bsr_spmm", [_p] * 4 + [_i] * 5 + [_p])
        for s in ("f32", "f64")},
+    "rbl_bsr_spmm_plan": ("bsr_spmm", [_i] * 4 + [_p]),
+    "rbl_bsr_spmm_packed_plan_f32": ("bsr_spmm", [_p] * 6 + [_i] * 7 + [_p]),
     **{f"rbl_bsr_spmm_panel_{s}": ("bsr_spmm_panel", [_p] * 6 + [_i] * 5 + [_p])
        for s in ("f32", "f64")},
     "rbl_dma_stream_f32": ("dma_stream", [_p] * 4 + [_i] * 2 + [_p]),
@@ -108,6 +110,18 @@ def _call(entry: str, dev: torch.device, *args) -> None:
     if err != 0:
         raise RuntimeError(f"{entry} kernel launch failed: cudaError_t {err} "
                            f"(arguments {args[-5:]})")
+
+
+def spmm_plan(bm: int, b: int, dtype, bk: int = 128) -> dict:
+    """The register block and ring that ``csrc/bsr_spmm.cu`` launches for
+    (bm, bk) tiles, ``b`` columns and ``dtype``: rows R and columns C a
+    thread, ring stages, dynamic shared bytes and threads a CTA."""
+    out = (ctypes.c_int * 5)()
+    err = _libraries()["bsr_spmm"].rbl_bsr_spmm_plan(
+        bm, bk, b, torch.empty((), dtype=dtype).element_size(), out)
+    if err != 0:
+        raise ValueError(f"no bsr_spmm plan for bm={bm}, bk={bk}, b={b}, {dtype}")
+    return dict(zip(("R", "C", "stages", "smem_bytes", "threads"), out))
 
 
 def launch_bsr_spmm_packed(tile_cols, hcount, rptr, vals, X, *, bm: int,

@@ -43,9 +43,11 @@ _RESIDENT_X_BYTES = 8 * 2**20
 # format router.  Least-squares fit by tools/fit_router.py to the f32,
 # b = 8 apply times of 12 plans of fem_elasticity_3d(42) and of the
 # assembled 512² Laplacian on an NVIDIA H100 80GB HBM3, 700.00 W (within
-# 4% on every fem42 plan, 18% on the Laplacian's).
-_STEP_COST_BYTES = 20_601
-_BSR_BYTES_PER_S = 2.7396e12
+# 6% on every fem42 plan, 19% on the Laplacian's).  The kernel streams its
+# tiles through a ring of asynchronous copies, so a tile costs little
+# beyond its bytes.
+_STEP_COST_BYTES = 669
+_BSR_BYTES_PER_S = 2.5647e12
 
 _NP_DTYPE = {torch.float32: np.float32, torch.float64: np.float64}
 

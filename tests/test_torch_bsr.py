@@ -66,10 +66,13 @@ def test_pick_tile_plan_agrees_with_jax(name):
         cost(best) / tbsr._BSR_BYTES_PER_S)
 
 
-# each value of bm, U and b appears, with both dtypes and both entry points
+# each value of bm, U and b appears, with both dtypes and both entry points;
+# b = 1, 5 and 33 are not multiples of the card kernel's 4-wide column
+# vectors, and 33 spans two of its 32-column CTAs
 KERNEL_CASES = [
     ("random517", 16, 4, 4), ("tiny9", 32, 8, 8),
     ("messy", 64, 4, 16), ("dupcoo", 128, 8, 16),
+    ("fem3", 32, 4, 1), ("random517", 64, 8, 5), ("messy", 128, 4, 33),
 ]
 
 

@@ -19,28 +19,64 @@ from rbl_tpu_torch.ops.spmm import bsr as tbsr
 from rbl_tpu_torch.utils.fem import fem_elasticity_3d
 
 
+# the edges of the kernel's column blocks: 16-byte vectors of 4 f32 (2
+# f64), register blocks of 4 or 8 columns, CTAs of up to 32 columns
+WIDTHS = (1, 3, 4, 5, 7, 8, 9, 16, 17, 33, 100)
+
+
+def gappy_sym():
+    """messy_sym with rows and columns 512-1023 removed: block-rows with
+    no tile at every tile height up to 128."""
+    import scipy.sparse as sp
+
+    A = messy_sym()
+    keep = np.ones(A.shape[0])
+    keep[512:1024] = 0.0
+    D = sp.diags(keep)
+    return (D @ A @ D).tocsr()
+
+
+def _empty_rows_dropped(A, op):
+    """op's hcount with 0 for every block-row of A that holds no nonzero,
+    so that the kernel meets rows with no tile at all."""
+    per_row = np.add.reduceat(np.diff(A.indptr), np.arange(0, A.shape[0], op.bm))
+    hc = op.hcount.cpu().numpy().copy()
+    hc[per_row == 0] = 0
+    assert (hc == 0).any()
+    return torch.from_numpy(hc).to(op.hcount.device)
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 def test_cuda_kernel_matches_reference(dtype):
+    """The packed kernel (B1/B2) against its plain version at every width
+    of WIDTHS: tile heights 16, 64, 100 (128 % bm != 0, rows of the
+    register block idle) and 128; block-rows with no tile (hcount 0); and
+    bk = 32 with U = 1, whose single-tile rows have one ring stage, fewer
+    than the ring holds.  Two runs agree bit for bit."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernel has no CPU mode")
-    A = messy_sym()
-    # bm=100 leaves threads idle (128 % bm != 0); b=33 and 100 span two
-    # and four column groups
-    for bm, U in ((16, 4), (100, 4), (128, 8)):
+    A = gappy_sym()
+    tol = 1e-5 if dtype == torch.float32 else 1e-12
+    for bm, bk, U in ((16, 128, 4), (64, 128, 4), (100, 128, 4), (128, 128, 8),
+                      (64, 32, 1)):
         op = tbsr.BlockSparseOperator.from_scipy(
-            A, dtype=dtype, bm=bm, unroll=U, device="cuda"
+            A, dtype=dtype, bm=bm, bk=bk, unroll=U, device="cuda"
         )
-        for b in (1, 5, 8, 33, 100):
-            X = torch.randn((16 * 128, b), dtype=dtype, device="cuda")
-            args = (op.tile_cols, op.hcount, op.rptr, op.vals, X)
-            n0 = tbsr.bsr_spmm_packed.launches
-            Y = tbsr.bsr_spmm_packed(*args, bm=bm, bk=128, H=op.H, unroll=U)
-            Yr = tbsr.bsr_spmm_packed_reference(*args, bm=bm, bk=128, unroll=U)
-            torch.cuda.synchronize()
-            assert tbsr.bsr_spmm_packed.launches == n0 + 1
-            tol = 1e-5 if dtype == torch.float32 else 1e-12
-            assert rel_err(Y.cpu().numpy(), Yr.cpu().numpy()) < tol
+        assert (op.hcount.cpu().numpy() == 1).any()
+        ncb = -(-A.shape[0] // bk)
+        for hcount in (op.hcount, _empty_rows_dropped(A, op)):
+            for b in WIDTHS:
+                X = torch.randn((ncb * bk, b), dtype=dtype, device="cuda")
+                args = (op.tile_cols, hcount, op.rptr, op.vals, X)
+                n0 = tbsr.bsr_spmm_packed.launches
+                Y = tbsr.bsr_spmm_packed(*args, bm=bm, bk=bk, H=op.H, unroll=U)
+                again = tbsr.bsr_spmm_packed(*args, bm=bm, bk=bk, H=op.H, unroll=U)
+                Yr = tbsr.bsr_spmm_packed_reference(*args, bm=bm, bk=bk, unroll=U)
+                torch.cuda.synchronize()
+                assert tbsr.bsr_spmm_packed.launches == n0 + 2
+                assert rel_err(Y.cpu().numpy(), Yr.cpu().numpy()) < tol, (bm, bk, b)
+                assert torch.equal(Y, again)
 
 
 @pytest.mark.gpu
@@ -73,18 +109,20 @@ def _ell_operands(A, bm, U, dtype):
 def test_cuda_blocked_ell_kernel_matches_reference(dtype):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernel has no CPU mode")
-    A = messy_sym()
-    for bm, U in ((16, 4), (100, 2), (128, 1)):
+    A = gappy_sym()
+    tol = 1e-5 if dtype == torch.float32 else 1e-12
+    for bm, U in ((16, 4), (64, 2), (100, 2), (128, 1)):
         bc, bv, ncb, L = _ell_operands(A, bm, U, dtype)
-        for b in (1, 5, 8, 33, 100):
+        for b in WIDTHS:
             X = torch.randn((ncb * 128, b), dtype=dtype, device="cuda")
             n0 = tbsr.bsr_spmm.launches
             Y = tbsr.bsr_spmm(bc, bv, X, bm=bm, bk=128, L=L, unroll=U)
+            again = tbsr.bsr_spmm(bc, bv, X, bm=bm, bk=128, L=L, unroll=U)
             Yr = tbsr.bsr_spmm_reference(bc, bv, X, bm=bm, bk=128, L=L)
             torch.cuda.synchronize()
-            assert tbsr.bsr_spmm.launches == n0 + 1
-            tol = 1e-5 if dtype == torch.float32 else 1e-12
-            assert rel_err(Y.cpu().numpy(), Yr.cpu().numpy()) < tol
+            assert tbsr.bsr_spmm.launches == n0 + 2
+            assert rel_err(Y.cpu().numpy(), Yr.cpu().numpy()) < tol, (bm, b)
+            assert torch.equal(Y, again)
 
 
 @pytest.mark.gpu
