@@ -46,9 +46,38 @@ a user calls, and checks the answers:
      over its default configurations and the card's plan for fem42; (c)
      the three variants over fem42's own packed vals (phase 3's plan), each
      beside B1's (b = 8) and B2's (b = 16) times on that plan, timed the
-     same way, and their excess over it.
+     same way, and their excess over it;
+ 11. the pinned-host basis tier: the phase-5 fem42 solve (k = 100, b = 8,
+     f32, tol 1e-3, cap 1400) with basis_device_cap_cols=256: the Krylov
+     dimension must pass 256 and at least one pinned panel be written, the
+     head 90 meet phase 5's gate and agree with phase 5's uncapped solve
+     within 1e-4 relative, and max |VᵀV − I| over the Ritz vectors stay
+     under 1e-3; the solve's time beside the uncapped one, the panels and
+     the bytes moved each way;
+ 12. the sweep checkpoint: the same solve with sweep_checkpoint_path in a
+     temporary directory, sweep_checkpoint_every=3 and an injected abort
+     after 3 chunks raises SweepAborted and leaves the file; the same call
+     without the abort resumes, ends as the uninterrupted solve did,
+     removes the file and agrees with it within 1e-3 relative on the head
+     90; once more through the host tier (cap 256);
+ 13. rbl_restarted on fem42 (k = 20, b = 8, f32, restart_kryl_dim=200,
+     tol 1e-3) with checkpoint_path, and once more cut after one restart
+     and resumed from load_restart_state; both held to the ARPACK head;
+ 14. rbl_polished on the 512² Laplacian in bench.py's at-1e-7
+     configuration (k = 50, b = 8, f64, cholqr2, poll cadence 16,
+     bounds=(0, None)), held to the analytic spectrum within 1e-9 relative
+     with every residual ≤ 1e-7, and on fem42 (k = 20, b = 8, f64 tiles
+     through the packed kernel; residuals ≤ 1e-7·‖A‖);
+     rbl_filtered(which="LA") on the Laplacian (k = 50) against the same
+     spectrum;
+ 15. rbl_svd of a seeded dense 20,000 × 2,000 f64 matrix with singular
+     values 0.9^i (k = 20) and of a seeded sparse 200,000 × 50,000 matrix
+     with 10 nonzeros a row and decaying column scales (k = 10), against
+     scipy.sparse.linalg.svds (1e-8 and 1e-6 relative) and by
+     ‖B·V − U·diag(s)‖.
 
-The last two lines are the kernels' JSON record and the JSON result.  Any
+Phases 11-14 launch B1/B2 through BlockSparseOperator.apply: the kernels'
+record adds their launches to phase 5's.  The last two lines are the kernels' JSON record and the JSON result.  Any
 failure raises, and the script exits non-zero; it also exits non-zero,
 printing no result, when no CUDA device is available.
 """
@@ -59,6 +88,7 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -232,18 +262,19 @@ def laplacian_check(eigenvalues, nx: int) -> float:
     return float(np.max(np.abs(np.asarray(eigenvalues) - lam) / lam))
 
 
-def solve(op, k: int, b: int, label: str, tol: float = 1e-3):
-    """One solve in f32 (cholqr2, cap 1400) on the card; returns the
-    result and its wall seconds."""
+def solve(op, k: int, b: int, label: str, tol: float = 1e-3, timer=None,
+          **cfg_kw):
+    """One solve in f32 (cholqr2, cap 1400, further RBLConfig fields from
+    ``cfg_kw``) on the card; returns the result and its wall seconds."""
     import torch
 
     import rbl_tpu_torch as rt
 
     cfg = rt.RBLConfig(block_size=b, basis_dtype=torch.float32,
                        compute_dtype=torch.float32, qr_method="cholqr2",
-                       tol=tol, max_kryl_dim=1400)
+                       tol=tol, max_kryl_dim=1400, **cfg_kw)
     t0 = time.perf_counter()
-    res = rt.rbl(op, k, cfg=cfg)
+    res = rt.rbl(op, k, cfg=cfg, timer=timer)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     w = np.asarray(res.eigenvalues)
@@ -254,10 +285,11 @@ def solve(op, k: int, b: int, label: str, tol: float = 1e-3):
     return res, wall
 
 
-def fem_solve(op, k: int, b: int, head: np.ndarray, label: str = "fem42"):
+def fem_solve(op, k: int, b: int, head: np.ndarray, label: str = "fem42",
+              **kw):
     """One fem42 solve (see ``solve``, tol 1e-3); returns the result, its
     wall seconds and its max relative error on the ARPACK head."""
-    res, wall = solve(op, k, b, f"{label} b={b}")
+    res, wall = solve(op, k, b, f"{label} b={b}", **kw)
     w = np.asarray(res.eigenvalues)
     err = float(np.max(np.abs(w[: len(head)] - head) / head))
     if not err < 1e-2:
@@ -317,6 +349,262 @@ def check_probe(name: str, vals, seed, xt, bm: int, U: int) -> float:
 def reset_launches(*fns):
     for f in fns:
         f.launches = 0
+
+
+def rel_diff(a, b) -> float:
+    a, b = np.asarray(a, dtype=np.float64), np.asarray(b, dtype=np.float64)
+    return float(np.max(np.abs(a - b) / np.abs(b)))
+
+
+def phase_host_tier(op32, head, ref, ref_wall: float, card: str):
+    """Phase 11; returns the capped solve's result."""
+    import torch
+
+    from rbl_tpu_torch.utils.profiling import Timer
+
+    cap = 256
+    timer = Timer()
+    res, wall, err = fem_solve(op32, 100, 8, head, "fem42 host tier",
+                               timer=timer, basis_device_cap_cols=cap)
+    c = timer.counters
+    if not res.kryl_dim > cap:
+        raise AssertionError(f"host tier: kryl_dim {res.kryl_dim} never passed "
+                             f"the cap {cap}")
+    if c["basis_host_panels"] < 1:
+        raise AssertionError("host tier: no pinned panel was written")
+    agree = rel_diff(res.eigenvalues[:90], ref.eigenvalues[:90])
+    if not agree < 1e-4:
+        raise AssertionError(f"host tier: head 90 off the uncapped solve by "
+                             f"{agree:.3e} ≥ 1e-4")
+    V = res.eigenvectors
+    orth = float((V.T @ V - torch.eye(V.shape[1], device=V.device,
+                                      dtype=V.dtype)).abs().max())
+    if not orth < 1e-3:
+        raise AssertionError(f"host tier: max |VᵀV − I| = {orth:.3e} ≥ 1e-3")
+    print(f"fem42 host tier (cap {cap}) k=100 b=8 f32: wall {wall:.3f} s "
+          f"(uncapped {ref_wall:.3f} s), max rel err (ARPACK head 90) "
+          f"{err:.3e}, against the uncapped solve {agree:.3e}, max |VᵀV − I| "
+          f"{orth:.3e}, kryl_dim {res.kryl_dim} (uncapped {ref.kryl_dim}), "
+          f"converged {res.converged}, pinned panels {c['basis_host_panels']} "
+          f"({c['basis_d2h_bytes'] / 1e6:.1f} MB device→host), host→device "
+          f"{c['basis_h2d_bytes'] / 1e9:.3f} GB over {c['basis_split_steps']} "
+          f"split steps ({c['basis_h2d_bytes'] / max(c['basis_split_steps'], 1) / 1e6:.0f}"
+          f" MB and {(wall - ref_wall) / max(c['basis_split_steps'], 1) * 1e3:.2f} ms "
+          f"of added wall a split step)  [{card}]")
+    return res
+
+
+def phase_sweep_checkpoint(op32, head, ref, card: str):
+    """Phase 12."""
+    from rbl_tpu_torch import SweepAborted
+    from rbl_tpu_torch.utils.profiling import Timer
+
+    for cap in (None, 256):
+        label = "fem42 checkpoint" + (f" (cap {cap})" if cap else "")
+        with tempfile.TemporaryDirectory() as d:
+            path = os.path.join(d, "sweep.npz")
+            kw = dict(sweep_checkpoint_path=path, sweep_checkpoint_every=3,
+                      basis_device_cap_cols=cap)
+            t0 = time.perf_counter()
+            try:
+                solve(op32, 100, 8, label, fault_inject_abort_after_chunks=3, **kw)
+            except SweepAborted as e:
+                aborted = str(e)
+            else:
+                raise AssertionError(f"{label}: the injected abort never fired")
+            abort_s = time.perf_counter() - t0
+            if not os.path.exists(path):
+                raise AssertionError(f"{label}: no checkpoint after the abort")
+            size = os.path.getsize(path)
+            timer = Timer()
+            res, wall, err = fem_solve(op32, 100, 8, head, label, timer=timer, **kw)
+            if os.path.exists(path):
+                raise AssertionError(f"{label}: the checkpoint outlived the solve")
+        if res.converged != ref.converged:
+            raise AssertionError(f"{label}: resumed solve converged="
+                                 f"{res.converged}, uninterrupted {ref.converged}")
+        agree = rel_diff(res.eigenvalues[:90], ref.eigenvalues[:90])
+        if not agree < 1e-3:
+            raise AssertionError(f"{label}: resumed head 90 off the "
+                                 f"uninterrupted solve by {agree:.3e} ≥ 1e-3")
+        saves = timer.counts["checkpoint"]
+        save_ms = timer.times["checkpoint"] / max(saves, 1) * 1e3
+        print(f"{label}: {aborted}; file {size / 1e6:.1f} MB after "
+              f"{abort_s:.3f} s; resumed in {wall:.3f} s, kryl_dim "
+              f"{res.kryl_dim}, converged {res.converged}, max rel err (ARPACK "
+              f"head 90) {err:.3e}, against the uninterrupted solve "
+              f"{agree:.3e}, {saves} more saves at {save_ms:.0f} ms each, file "
+              f"removed  [{card}]")
+
+
+def phase_restarted(op32, head, card: str):
+    """Phase 13."""
+    import torch
+
+    import rbl_tpu_torch as rt
+    from rbl_tpu_torch.utils.checkpoint import load_restart_state
+
+    cfg = rt.RBLConfig(basis_dtype=torch.float32, compute_dtype=torch.float32,
+                       qr_method="cholqr2", tol=1e-3, restart_kryl_dim=200)
+
+    def held(res, label):
+        w = np.asarray(res.eigenvalues)
+        if w.shape != (20,) or not res.converged:
+            raise AssertionError(f"{label}: locked {w.shape[0]}/20 pairs")
+        err = rel_diff(w, head[:20])
+        if not err < 1e-2:
+            raise AssertionError(f"{label}: max rel error {err:.3e} vs ARPACK ≥ 1e-2")
+        return err
+
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "restart.npz")
+        t0 = time.perf_counter()
+        res = rt.rbl_restarted(op32, 20, cfg=cfg, b=8, checkpoint_path=path)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        err = held(res, "fem42 restarted")
+        print(f"fem42 rbl_restarted k=20 b=8 f32 restart_kryl_dim=200: wall "
+              f"{wall:.3f} s, {res.iterations} restarts, final kryl_dim "
+              f"{res.kryl_dim}, max rel err (ARPACK head 20) {err:.3e}  [{card}]")
+        os.remove(path)
+        t0 = time.perf_counter()
+        cut = rt.rbl_restarted(op32, 20, cfg=cfg, b=8, checkpoint_path=path,
+                               max_restarts=1)
+        state = load_restart_state(path)
+        locked = state.count  # the resumed solve updates the state in place
+        if state.restarts != 1 or locked != len(cut.eigenvalues):
+            raise AssertionError(f"restart checkpoint holds restarts="
+                                 f"{state.restarts}, count={locked}")
+        res2 = rt.rbl_restarted(op32, 20, cfg=cfg, b=8, state=state)
+        torch.cuda.synchronize()
+        wall2 = time.perf_counter() - t0
+        err2 = held(res2, "fem42 restarted, resumed")
+        print(f"fem42 rbl_restarted cut after 1 restart ({locked} locked) "
+              f"and resumed from its checkpoint: wall {wall2:.3f} s, "
+              f"{res2.iterations} restarts, final kryl_dim {res2.kryl_dim}, max "
+              f"rel err {err2:.3e}, against the uncut solve "
+              f"{rel_diff(res2.eigenvalues, res.eigenvalues):.3e}  [{card}]")
+
+
+def phase_polish(A, head, card: str):
+    """Phase 14."""
+    import torch
+
+    import rbl_tpu_torch as rt
+    from rbl_tpu_torch.utils.profiling import Timer
+
+    lap = rt.Laplacian2D(512, 512, dtype=torch.float64, device="cuda")
+    cfg = rt.RBLConfig(block_size=8, tol=1e-7, qr_method="cholqr2",
+                       eig_poll_cadence=16, seed=0)
+    for seed in (0, 1):  # the second, warm run is timed
+        timer = Timer(sync=True)
+        t0 = time.perf_counter()
+        res = rt.rbl_polished(lap, 50, cfg=cfg.replace(seed=seed), b=8,
+                              bounds=(0.0, None), timer=timer)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    err = laplacian_check(np.sort(res.eigenvalues)[::-1], 512)
+    worst = float(np.max(res.residual_bounds))
+    if not (res.converged and err < 1e-9 and worst <= 1e-7):
+        raise AssertionError(f"rbl_polished lap2d 512²: converged {res.converged}, "
+                             f"max rel err {err:.3e}, worst residual {worst:.3e}")
+    sections = ", ".join(f"{k} {v:.3f} s" for k, v in sorted(
+        timer.times.items(), key=lambda kv: -kv[1])[:4])
+    print(f"rbl_polished lap2d 512² k=50 b=8 f64 tol 1e-7 (bench config): warm "
+          f"wall {wall:.3f} s, {res.iterations} passes over {res.kryl_dim} "
+          f"columns, max rel err {err:.3e}, worst residual {worst:.3e}; "
+          f"{sections}  [{card}]")
+
+    t0 = time.perf_counter()
+    fres, info = rt.rbl_filtered(lap, 50, 8, cfg=cfg, which="LA",
+                                 bounds=(0.0, None), return_info=True)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    err = laplacian_check(fres.eigenvalues, 512)
+    if not (fres.converged and err < 1e-9):
+        raise AssertionError(f"rbl_filtered lap2d 512²: converged {fres.converged}, "
+                             f"max rel err {err:.3e}")
+    print(f"rbl_filtered lap2d 512² which=LA k=50 b=8 f64: wall {wall:.3f} s, "
+          f"degree {info.degree}, cutoff {info.cutoff:.6f}, pre-sweep "
+          f"{info.presweep_kryl} columns, kryl_dim {fres.kryl_dim}, max rel err "
+          f"{err:.3e}, worst true residual {np.max(fres.residual_bounds):.3e}  "
+          f"[{card}]")
+    del lap
+
+    op64 = rt.as_operator(A, dtype=torch.float64, device="cuda", format="bsr")
+    norm = float(head[0])
+    t0 = time.perf_counter()
+    res = rt.rbl_polished(op64, 20, cfg=rt.RBLConfig(tol=1e-7 * norm), b=8)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    err = rel_diff(res.eigenvalues, head[:20])
+    worst = float(np.max(res.residual_bounds)) / norm
+    if not (res.converged and worst <= 1e-7 and err < 1e-6):
+        raise AssertionError(f"rbl_polished fem42: converged {res.converged}, worst "
+                             f"residual {worst:.3e}·‖A‖, max rel err {err:.3e}")
+    print(f"rbl_polished fem42 (bsr, f64 tiles) k=20 b=8 tol 1e-7·‖A‖: wall "
+          f"{wall:.3f} s, {res.iterations} passes over {res.kryl_dim} columns, "
+          f"worst residual {worst:.3e}·‖A‖, max rel err (ARPACK head 20) "
+          f"{err:.3e}  [{card}]")
+
+
+def phase_svd(card: str):
+    """Phase 15."""
+    import scipy.sparse as sp
+    import scipy.sparse.linalg as spla
+    import torch
+
+    import rbl_tpu_torch as rt
+
+    g = torch.Generator(device="cuda").manual_seed(15)
+    m, n, k = 20_000, 2_000, 20
+    Q1, _ = torch.linalg.qr(torch.randn((m, n), generator=g, dtype=torch.float64,
+                                        device="cuda"))
+    Q2, _ = torch.linalg.qr(torch.randn((n, n), generator=g, dtype=torch.float64,
+                                        device="cuda"))
+    B = (Q1 * (0.9 ** torch.arange(n, dtype=torch.float64, device="cuda"))) @ Q2.T
+    del Q1, Q2
+    t0 = time.perf_counter()
+    ref = np.sort(spla.svds(B.cpu().numpy(), k=k, return_singular_vectors=False))[::-1]
+    svds_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    res = rt.rbl_svd(B, k, 8, cfg=rt.RBLConfig(tol=1e-10))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    s = torch.as_tensor(res.s, device="cuda")
+    err = rel_diff(res.s, ref)
+    back = float((B @ res.V - res.U * s).abs().max())
+    if not (res.converged and err < 1e-8 and back < 1e-8):
+        raise AssertionError(f"rbl_svd dense: converged {res.converged}, max rel "
+                             f"err {err:.3e}, max |B·V − U·s| {back:.3e}")
+    print(f"rbl_svd dense {m}×{n} f64 k={k} b=8: wall {wall:.3f} s (svds "
+          f"{svds_s:.1f} s on the host), max rel err vs svds {err:.3e}, max "
+          f"|B·V − U·diag(s)| {back:.3e}, kryl_dim {res.kryl_dim}  [{card}]")
+    del B
+
+    m, n, k, per_row = 200_000, 50_000, 10, 10
+    rng = np.random.default_rng(15)
+    cols = rng.integers(0, n, (m, per_row))
+    vals = rng.standard_normal((m, per_row)) / np.sqrt(1.0 + cols)
+    S = sp.csr_matrix((vals.ravel(), cols.ravel(),
+                       np.arange(0, m * per_row + 1, per_row)), shape=(m, n))
+    S.sum_duplicates()
+    t0 = time.perf_counter()
+    ref = np.sort(spla.svds(S, k=k, return_singular_vectors=False))[::-1]
+    svds_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    res = rt.rbl_svd(S, k, 8, cfg=rt.RBLConfig(tol=1e-9 * ref[0] ** 2))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    err = rel_diff(res.s, ref)
+    back = float(np.abs(S @ res.V.cpu().numpy() - res.U.cpu().numpy() * res.s).max())
+    if not (res.converged and err < 1e-6 and back < 1e-6 * ref[0]):
+        raise AssertionError(f"rbl_svd sparse: converged {res.converged}, max rel "
+                             f"err {err:.3e}, max |B·V − U·s| {back:.3e}")
+    print(f"rbl_svd sparse {m}×{n}, {S.nnz} nonzeros, f64 k={k} b=8: wall "
+          f"{wall:.3f} s (svds {svds_s:.1f} s on the host), max rel err vs svds "
+          f"{err:.3e}, max |B·V − U·diag(s)| {back:.3e} (σ₁ {ref[0]:.3f}), "
+          f"kryl_dim {res.kryl_dim}  [{card}]")
 
 
 def main() -> int:
@@ -403,10 +691,10 @@ def main() -> int:
     print(f"lap2d 512² k=50 b=16 (bench config): warm wall {wall:.3f} s, "
           f"max rel err {lap_err:.3e}, kryl_dim {res.kryl_dim}, "
           f"converged {res.converged}  [{card}]")
-    fem_res = {}
+    fem_res, fem_wall = {}, {}
     for b in (8, 16):
         res, wall, err = fem_solve(op32, 100, b, head)
-        fem_res[b] = res
+        fem_res[b], fem_wall[b] = res, wall
         print(f"fem42 k=100 b={b} f32: wall {wall:.3f} s, max rel err (ARPACK "
               f"head 90) {err:.3e}, kryl_dim {res.kryl_dim}, converged "
               f"{res.converged}, launches resident="
@@ -417,6 +705,24 @@ def main() -> int:
     for f in packed:
         if launches[f.__name__] < 1:
             raise AssertionError(f"main path never launched {f.__name__}")
+
+    # --- 11.-14. the long-solve paths, each read on its own ------------------
+    def long_phase(number, fn, *args):
+        reset_launches(*every)
+        t0 = time.perf_counter()
+        out = fn(*args)
+        counts = {f.__name__: f.launches for f in packed}
+        if not any(counts.values()):
+            raise AssertionError(f"phase {number} launched neither packed kernel")
+        for name, c in counts.items():
+            launches[name] += c
+        print(f"phase {number}: {time.perf_counter() - t0:.1f} s, launches {counts}")
+        return out
+
+    long_phase(11, phase_host_tier, op32, head, fem_res[8], fem_wall[8], card)
+    long_phase(12, phase_sweep_checkpoint, op32, head, fem_res[8], card)
+    long_phase(13, phase_restarted, op32, head, card)
+    long_phase(14, phase_polish, A, head, card)
 
     # --- 6. blocked-ELL (B3) and panel (B4) against their plain versions --
     t6 = time.perf_counter()
@@ -702,6 +1008,11 @@ def main() -> int:
           f", {len(rows)} sweep rows; phase 10 in {time.perf_counter() - t10:.1f} s")
     del fem_op, fem_vals, fem_flat
     torch.cuda.empty_cache()
+
+    # --- 15. truncated SVD (no kernel of the table on this path) ------------
+    t15 = time.perf_counter()
+    phase_svd(card)
+    print(f"phase 15: {time.perf_counter() - t15:.1f} s")
     print(f"chip_smoke total: {time.perf_counter() - t_start:.1f} s")
 
     record = {"kernels": [

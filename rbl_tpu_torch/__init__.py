@@ -11,11 +11,22 @@ the card.  Entry points run on the CUDA card unless the caller passes
 
 Public surface:
   rbl / RBL / RBL_gpu      — RBL(A, k, b)            (RBL.jl:119)
-  RBLConfig                — every knob the reference hardcodes
+  rbl_restarted / RBL_restarted / RBL_gpu_restarted
+                           — restarted + deflated    (restarted.jl:97,196)
+  rbl_polished / chebyshev_refine
+                           — f32 discovery, f64 Chebyshev-filtered polish
+  rbl_filtered             — Chebyshev-filtered sweep for LA / SA
+  rbl_svd                  — truncated SVD on a matrix-free Gram operator
+  RBLConfig                — every knob the reference hardcodes, the
+                             pinned-host basis tier and the sweep
+                             checkpoint among them
   operators                — DiagonalOperator, DenseOperator,
                              BlockSparseOperator, DiaOperator,
                              SparseEllOperator, CooOperator, HybOperator,
-                             Laplacian2D/3D; as_operator coerces
+                             Laplacian2D/3D, GramOperator,
+                             SparseGramOperator, FunctionOperator,
+                             AffineOperator, ChebyshevFilterOperator;
+                             as_operator coerces
                              scipy/numpy/torch input and picks the sparse
                              layout (format="auto"|"dia"|"bsr"|"ell"|"hyb"|"coo")
 """
@@ -25,22 +36,48 @@ from .ops.spmm.bsr import BlockSparseOperator
 from .ops.spmm.coo import CooOperator, HybOperator
 from .ops.spmm.dia import DiaOperator
 from .ops.spmm.ell import SparseEllOperator
+from .ops.chebyshev import ChebyshevFilterOperator
 from .ops.spmm.operator import (
+    AffineOperator,
     DenseOperator,
     DiagonalOperator,
+    FunctionOperator,
+    GramOperator,
     Laplacian2D,
     Laplacian3D,
+    LinearOperator,
+    SparseGramOperator,
     as_operator,
 )
-from .solver.lanczos import LanczosResult
+from .solver.filtered import FilterInfo, rbl_filtered
+from .solver.lanczos import LanczosResult, SweepAborted
+from .solver.polish import chebyshev_refine, rbl_polished
 from .solver.rbl import RBL, RBL_gpu, rbl
+from .solver.restarted import RBL_gpu_restarted, RBL_restarted, rbl_restarted
+from .solver.svd import SVDResult, rbl_svd
 
 __all__ = [
     "RBLConfig",
     "rbl",
     "RBL",
     "RBL_gpu",
+    "rbl_restarted",
+    "RBL_restarted",
+    "RBL_gpu_restarted",
+    "chebyshev_refine",
+    "rbl_polished",
+    "rbl_filtered",
+    "FilterInfo",
+    "rbl_svd",
+    "SVDResult",
+    "SweepAborted",
     "as_operator",
+    "LinearOperator",
+    "AffineOperator",
+    "FunctionOperator",
+    "GramOperator",
+    "SparseGramOperator",
+    "ChebyshevFilterOperator",
     "BlockSparseOperator",
     "DiaOperator",
     "SparseEllOperator",

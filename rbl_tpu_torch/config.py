@@ -65,9 +65,12 @@ class RBLConfig:
         Fraction of free device memory the Krylov basis may use
         (reference: 0.8 of free VRAM, RBL_gpu.jl:96).
     basis_device_cap_cols:
-        Cap on device-resident basis columns, beyond which the reference
-        design spills to pinned host memory.  The host tier is not ported
-        yet: any value other than None raises ``NotImplementedError``.
+        Optional cap on device-resident basis columns.  Beyond it the
+        store moves the oldest columns to a pinned host panel and streams
+        the panels back for every full scrub: the reference's hybrid
+        VRAM/pinned-RAM hierarchy (RBL_gpu.jl:59-81,95-104,168-169) with
+        bulk compaction instead of per-block streaming.  None (default)
+        keeps the whole basis on the device.
     chunk_growth_cap:
         Cap (as a multiple of ``eig_poll_cadence``) on the geometric growth
         of the sweep-chunk length; chunks start at the poll cadence and
@@ -86,6 +89,28 @@ class RBLConfig:
         "default" allows TF32 (torch's "high", about three decimal
         digits).  The mode is set for the duration of the solve and
         restored afterwards.  No effect on f64.
+    sweep_checkpoint_path / sweep_checkpoint_every:
+        Mid-sweep checkpointing of ``rbl``: at every
+        ``sweep_checkpoint_every``-th cleanly processed chunk boundary the
+        full sweep state (basis prefix, recurrence triple, T band,
+        coupling history, reorth-policy flags) is written atomically to
+        ``sweep_checkpoint_path``; ``rbl`` resumes from an existing file
+        and deletes it when the solve completes.  None disables.  The path
+        identifies ONE logical solve: never share it across operators or
+        solves.  Internal multi-solve paths (the restarted inner sweeps,
+        the filtered solve) strip it.
+    fault_inject_abort_after_chunks:
+        Raise ``SweepAborted`` after this many processed chunks:
+        deterministic preemption for testing checkpoint and resume.
+    restart_kryl_dim / restart_growth / restart_reorth_cadence:
+        The restarted variant's initial sweep length (restarted.jl:103),
+        its growth per restart (restarted.jl:142) and the reference's
+        deflation cadence (restarted.jl:53; carried for parity: the port,
+        like the JAX package, deflates every step).
+    restart_growth_policy:
+        "stall" (default) grows the sweep only after a restart that locked
+        nothing, or after two low-yield restarts; "always" restores the
+        reference's unconditional growth.
     """
 
     block_size: int = 4
@@ -106,6 +131,13 @@ class RBLConfig:
     pipeline_depth: int = 2
     adaptive_reorth_max: int = 1
     matmul_precision: str = "high"
+    sweep_checkpoint_path: Optional[str] = None
+    sweep_checkpoint_every: int = 1
+    fault_inject_abort_after_chunks: Optional[int] = None
+    restart_kryl_dim: int = 100
+    restart_growth: int = 10
+    restart_reorth_cadence: int = 3
+    restart_growth_policy: str = "stall"
 
     def __post_init__(self):
         if self.block_size < 1:
@@ -117,8 +149,9 @@ class RBLConfig:
                 f"max_kryl_dim={self.max_kryl_dim} < block_size={self.block_size}"
             )
         for name in ("partial_reorth_cadence", "eig_poll_cadence",
-                     "loc_reorth_passes", "chunk_growth_cap",
-                     "pipeline_depth", "adaptive_reorth_max"):
+                     "loc_reorth_passes", "restart_reorth_cadence",
+                     "chunk_growth_cap", "pipeline_depth",
+                     "adaptive_reorth_max", "sweep_checkpoint_every"):
             if getattr(self, name) < 1:
                 raise ValueError(f"{name} must be ≥ 1")
         if self.qr_method not in ("auto", "householder", "cholqr2", "cholqr3"):

@@ -131,6 +131,87 @@ class CooOperator(LinearOperator):
 
 
 @dataclasses.dataclass
+class RectCooOperator:
+    """RECTANGULAR (m, n) sparse factor as row-sorted COO triplets — the
+    sparse analogue of the dense factor B that ``rbl_svd`` (solver/svd.py)
+    takes: not a symmetric LinearOperator, but the building block of the
+    matrix-free Gram operator BᵀB / B·Bᵀ (operator.py SparseGramOperator).
+    apply(X): (n, b) → (m, b) via the same gather + scatter-add as
+    CooOperator; ``transpose()`` returns the (n, m) factor with triplets
+    re-sorted by the new row index."""
+
+    rows: torch.Tensor
+    cols: torch.Tensor
+    vals: torch.Tensor
+    _m: int = 0
+    _ncols: int = 0
+    _chunk: int = 1 << 22
+
+    @property
+    def shape(self):
+        return (self._m, self._ncols)
+
+    @property
+    def dtype(self):
+        return self.vals.dtype
+
+    @property
+    def device(self):
+        return self.vals.device
+
+    @property
+    def nnz(self):
+        return int(torch.count_nonzero(self.vals))
+
+    def apply(self, X):
+        return _coo_apply(self.rows, self.cols, self.vals, X, self._m,
+                          self._chunk)
+
+    @classmethod
+    def from_scipy(cls, A, dtype=None, device=None):
+        """Build from scipy sparse on ``device`` (default: the CUDA card)."""
+        import scipy.sparse as sp
+
+        A = sp.coo_matrix(A)
+        vals = A.data.astype(host_dtype(dtype, A.dtype))
+        return cls._from_triplets(A.row, A.col, vals, A.shape[0], A.shape[1],
+                                  dtype, device)
+
+    @classmethod
+    def _from_triplets(cls, rows, cols, vals, m, ncols, dtype=None,
+                       device=None):
+        dev = resolve_device(device)
+        rows, cols, vals = _pad_sorted_triplets(rows, cols, vals, m - 1)
+        return cls(
+            rows=torch.from_numpy(rows).to(dev),
+            cols=torch.from_numpy(cols).to(dev),
+            vals=to_device(vals, dtype, dev),
+            _m=m,
+            _ncols=ncols,
+        )
+
+    def transpose(self) -> "RectCooOperator":
+        """The (n, m) transposed factor on the same device — triplets
+        swapped and re-sorted host-side (a one-time cost at operator
+        construction)."""
+        rows = self.cols.cpu().numpy()
+        cols = self.rows.cpu().numpy()
+        vals = self.vals
+        if vals.dtype.itemsize < 4:
+            vals = vals.float()
+        vals = vals.cpu().numpy()
+        live = vals != 0  # drop this layout's padding; _from_triplets re-pads
+        return RectCooOperator._from_triplets(
+            rows[live], cols[live], vals[live], self._ncols, self._m,
+            self.dtype, self.device,
+        )
+
+    @property
+    def T(self) -> "RectCooOperator":
+        return self.transpose()
+
+
+@dataclasses.dataclass
 class HybOperator(LinearOperator):
     """ELL capped at a row-length quantile + COO overflow (HYB layout)."""
 

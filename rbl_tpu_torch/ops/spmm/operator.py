@@ -11,6 +11,7 @@ routes a sparse matrix to one of them (``_pick_sparse_format``).
 from __future__ import annotations
 
 import dataclasses
+from typing import Any
 
 import numpy as np
 import torch
@@ -94,8 +95,8 @@ def cast_operator(op, dtype: torch.dtype):
     def cast(v):
         if isinstance(v, torch.Tensor) and v.is_floating_point():
             return v.to(dtype)
-        if isinstance(v, LinearOperator):
-            return cast_operator(v, dtype)
+        if dataclasses.is_dataclass(v) and not isinstance(v, type):
+            return cast_operator(v, dtype)  # a nested operator or factor
         return v
 
     kw = {f.name: cast(getattr(op, f.name)) for f in dataclasses.fields(op)}
@@ -154,6 +155,120 @@ class DenseOperator(LinearOperator):
 
     def diagonal(self):
         return torch.diagonal(self.mat)
+
+
+@dataclasses.dataclass
+class GramOperator(LinearOperator):
+    """A = BᵀB (or B·Bᵀ) of a rectangular factor B, applied matrix-free as
+    two chained GEMMs — the Gram matrix is never materialized.
+
+    The reference's image demo forms the n×n Gram densely before solving
+    (images.jl:21 ``RBL(B'B, k)``); matrix-free keeps device memory at
+    O(m·n) instead of O(n²) + O(m·n).  Used by ``rbl_svd``
+    (solver/svd.py)."""
+
+    B: torch.Tensor  # (m, n)
+    left: bool = False  # True: A = B·Bᵀ (m×m)
+
+    @property
+    def shape(self):
+        s = self.B.shape[0] if self.left else self.B.shape[1]
+        return (s, s)
+
+    @property
+    def dtype(self):
+        return self.B.dtype
+
+    @property
+    def device(self):
+        return self.B.device
+
+    def apply(self, X):
+        acc = _pet(X.dtype)
+        F, S = (self.B.T, self.B) if self.left else (self.B, self.B.T)
+        return dot(S, dot(F, X, acc), acc)
+
+    def diagonal(self):
+        # diag(BᵀB) = squared column norms (rows for the B·Bᵀ side)
+        ax = 1 if self.left else 0
+        Ba = self.B.to(_pet(self.B.dtype))
+        return torch.sum(Ba * Ba, dim=ax).to(self.B.dtype)
+
+
+@dataclasses.dataclass
+class FunctionOperator(LinearOperator):
+    """Matrix-free operator from a user-supplied function
+    ``fun(X) -> A·X`` on (n, b) tensors of ``dtype`` on ``device``.  The
+    function must be symmetric as a linear map.  The scipy-LinearOperator
+    migration path for matrix-free users — except the map stays on the
+    device instead of calling back to the host."""
+
+    fun: Any
+    _n: int = 0
+    dtype: torch.dtype = torch.float64
+    device: torch.device | None = None  # None: the CUDA card
+
+    def __post_init__(self):
+        self.device = resolve_device(self.device)
+
+    @property
+    def shape(self):
+        return (self._n, self._n)
+
+    def apply(self, X):
+        return self.fun(X)
+
+
+@dataclasses.dataclass
+class SparseGramOperator(LinearOperator):
+    """A = BᵀB (or B·Bᵀ) of a SPARSE rectangular factor B, applied
+    matrix-free as two chained sparse SpMMs — neither the Gram matrix nor
+    a dense copy of B is ever materialized.  The sparse upgrade of
+    GramOperator for ``rbl_svd`` on large sparse factors (the reference's
+    images.jl:21 forms BᵀB densely; scipy's ``svds`` keeps B sparse).
+
+    Bf is the (m, n) forward factor, Bt its (n, m) transpose — both
+    pre-sorted COO layouts built once at construction (coo.py
+    RectCooOperator)."""
+
+    Bf: Any  # RectCooOperator (m, n)
+    Bt: Any  # RectCooOperator (n, m)
+    left: bool = False  # True: A = B·Bᵀ (m×m)
+
+    @property
+    def shape(self):
+        s = self.Bf.shape[0] if self.left else self.Bf.shape[1]
+        return (s, s)
+
+    @property
+    def dtype(self):
+        return self.Bf.dtype
+
+    @property
+    def device(self):
+        return self.Bf.device
+
+    def apply(self, X):
+        if self.left:
+            return self.Bf.apply(self.Bt.apply(X))
+        return self.Bt.apply(self.Bf.apply(X))
+
+    def diagonal(self):
+        # diag(BᵀB)_j = Σ_{nnz with col j} val² (rows for the B·Bᵀ side);
+        # COO pad slots carry val 0, so they contribute nothing
+        idx, n = ((self.Bf.rows, self.Bf.shape[0]) if self.left
+                  else (self.Bf.cols, self.Bf.shape[1]))
+        out = torch.zeros((n,), dtype=self.dtype, device=self.device)
+        return out.index_add_(0, idx, self.Bf.vals * self.Bf.vals)
+
+    @classmethod
+    def from_scipy(cls, B, dtype=None, left: bool = False, device=None):
+        """Build from a scipy sparse (m, n) factor on ``device`` (default:
+        the CUDA card)."""
+        from .coo import RectCooOperator
+
+        Bf = RectCooOperator.from_scipy(B, dtype=dtype, device=device)
+        return cls(Bf=Bf, Bt=Bf.transpose(), left=left)
 
 
 @dataclasses.dataclass

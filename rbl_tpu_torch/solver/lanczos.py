@@ -82,6 +82,13 @@ def _dbg(msg):
         print(f"[rbl] {msg}", flush=True)
 
 
+class SweepAborted(RuntimeError):
+    """Raised by the deterministic preemption injector
+    (``RBLConfig.fault_inject_abort_after_chunks``) — simulates losing the
+    process mid-sweep so the checkpoint/resume path can be tested without
+    actually killing anything."""
+
+
 def _poll_task(snapshot, k, chain, tol, force_full):
     """One convergence poll, run on the eig worker thread: a values-only
     screen (dsbevd eigenvalues path) gates the full factorization — the
@@ -250,6 +257,37 @@ def _sweep_chunk(
     return basis_buf, Qi, Qprev, Bi, TB
 
 
+def _split_step_recur(op: LinearOperator, basis_buf, Qi, Qprev, Bi, col, *, cdt):
+    """Archive Qprev at buffer column ``col`` and run ONE three-term-
+    recurrence step, halted at the raw residual U (before any
+    reorthogonalization or QR).  Returns (U, A_i).
+
+    Used when the host tier is active: the offloaded panels must project
+    the NEWBORN residual, never the live pair (Qi, Qprev) whose T
+    couplings (A_{i-1}, B_i) are already recorded — retroactively
+    scrubbing recorded blocks makes T ≠ QᵀAQ by O(‖leak‖·‖A‖) (the
+    reference's hybrid_part_reorth! does exactly that, RBL_gpu.jl:59-81).
+    The caller streams each host panel through a projection of U,
+    finishes the step with _split_step_qr, and runs the window's
+    local-scrub steps through the normal _sweep_chunk."""
+    acc = _pet(cdt)
+    basis_buf[:, col : col + Qprev.shape[1]].copy_(Qprev)
+    Qc = Qi.to(cdt)
+    U = op.apply(Qc) - dot(Qprev.to(cdt), Bi.T, acc)
+    Ai = gram(Qc, U)
+    U = U - dot(Qc, Ai, acc)
+    return U, Ai
+
+
+def _split_step_qr(U, lock_basis, *, qr_method, bdt):
+    """Finish a split step: deflate the (now host-tier-clean) residual
+    against the lock set and orthonormalize it."""
+    if lock_basis is not None:
+        U = deflate(lock_basis, U)
+    Qn, Bn = block_qr(U, method=qr_method)
+    return Qn.to(bdt), Bn
+
+
 def _start_host_copy(TB):
     """Start the device→host copy of a chunk's T blocks (the only per-chunk
     transfer); returns a handle for ``_finish_host_copy``.  On the card the
@@ -273,12 +311,17 @@ def _finish_host_copy(handle) -> np.ndarray:
 
 def _fresh_directions(store, extras, lock_basis, gen, shape, dtype, qr_method):
     """Breakdown recovery: fresh random directions orthogonalized (CGS2 +
-    QR) against the WHOLE stored state — the stored basis, the lock set,
-    and the given live ``extras`` blocks.  The reference has no breakdown
+    QR) against the WHOLE stored state — device tier, host-offloaded
+    panels, the lock set, and the given live ``extras`` blocks.  The reference has no breakdown
     handling (SURVEY §5) — after an invariant subspace converges, its QR
     renormalizes noise and re-injects converged directions ("ghost" Ritz
     values).  Re-randomizing keeps the basis orthonormal and the sweep
     productive.
+
+    The host tier and lock set must be included: a random block has
+    ~√(cols/n) expected overlap with any stored span, and a leak frozen in
+    here re-amplifies every subsequent step.  Breakdowns are rare, so the
+    cost of streaming the panels once per pass does not matter.
 
     ``extras`` must contain ONLY kept state (Q_i = the new Qprev):
     projecting against the dead chunk-end block as well reinjects whatever
@@ -286,6 +329,8 @@ def _fresh_directions(store, extras, lock_basis, gen, shape, dtype, qr_method):
     Z = torch.randn(shape, generator=gen, dtype=dtype, device=store.buf.device)
     for _ in range(2):
         Z = project_out(store.view(), Z)
+        for panel in store.stream_host_tier():
+            Z = project_out(panel, Z)
         if lock_basis is not None:
             Z = project_out(lock_basis, Z)
         for blk in extras:
@@ -383,12 +428,24 @@ def _rayleigh_refine(op: LinearOperator, X, theta0, cdt, width=None):
 
 
 def recover_eigvec(store: BasisStore, Vk: np.ndarray) -> torch.Tensor:
-    """Ritz-vector recovery V = Q_basis · Ṽ as one GEMM over the stored
-    prefix (the reference accumulates per-block GEMMs: RBL.jl:61-71,
-    RBL_gpu.jl:106-132).  Vk has store.ncols rows."""
+    """Ritz-vector recovery V = Q_basis · Ṽ; Vk has store.ncols rows.
+    Host-tier panels (columns [0, dev_base)) and the device tier (columns
+    [dev_base, ncols)) contribute contiguous GEMMs — the reference's
+    panelled GPU recovery + CPU overflow accumulation (RBL_gpu.jl:106-132)
+    with no per-block loop and no permutation."""
     basis = store.view()
+    acc = _pet(basis.dtype)
     Vt = torch.as_tensor(np.ascontiguousarray(Vk), device=basis.device)
-    return dot(basis, Vt.to(basis.dtype), _pet(basis.dtype))
+    Vt = Vt.to(basis.dtype)
+    out = None
+    off = 0
+    for panel in store.stream_host_tier():
+        w = panel.shape[1]
+        part = dot(panel, Vt[off : off + w], acc)
+        out = part if out is None else out + part
+        off += w
+    dev_part = dot(basis, Vt[store.dev_base :], acc)
+    return dev_part if out is None else out + dev_part
 
 
 def random_start_block(op: LinearOperator, gen: torch.Generator, b: int,
@@ -415,6 +472,7 @@ def lanczos_iteration(
     lock_basis=None,
     timer=None,
     generator: Optional[torch.Generator] = None,
+    resume: Optional[dict] = None,
 ) -> tuple[np.ndarray, np.ndarray, "BlockTridiagonalT", Optional[np.ndarray], bool, int]:
     """Run the block Lanczos sweep until convergence or the Krylov cap.
 
@@ -423,6 +481,16 @@ def lanczos_iteration(
     nblocks basis blocks on return.  ``generator`` draws every breakdown
     re-randomization (default: a fresh one seeded ``cfg.seed + 1`` on the
     operator's device).
+
+    ``resume``: a ``utils.checkpoint.load_sweep_state`` dict — restores the
+    between-chunks invariant (basis prefix in ``store``, which must come in
+    EMPTY; recurrence triple; T band; flags) and continues the sweep from
+    the saved iteration instead of running the first step on ``Qi``.  The
+    generator's state is restored from the file's ``gen_state`` when it was
+    saved on the same kind of device; a file without one (written by the
+    JAX package, whose ``key`` does not cross) continues with a fresh
+    generator seeded ``cfg.seed + 1``.  The generator only matters after a
+    breakdown.
     """
     from ..utils.profiling import null_timer
 
@@ -449,15 +517,28 @@ def lanczos_iteration(
     def on_device(B):
         return torch.as_tensor(np.asarray(B), dtype=cdt, device=dev)
 
-    # --- first iteration, unrolled ---
-    with timer.section("recurrence"):
-        Qnext, Bnext, Ai = first_step_fn(op, Qi, cdt=cdt, qr_method=qr_method)
-    AB0 = torch.stack([Ai, Bnext.to(Ai.dtype)]).cpu().numpy()  # one transfer
-    T.append_diag(AB0[0])
-    T.set_subdiag(AB0[1], 0)
-    tscale = np.abs(AB0[0]).max()
-    B_last = AB0[1]  # host copy of the newest B (degenerate-cap fallback)
-    Qprev, Qi, Bi = Qi, Qnext, Bnext
+    if resume is not None:
+        if int(resume["n"]) != n or int(resume["b"]) != b:
+            raise ValueError(
+                f"checkpoint shape mismatch: saved (n={resume['n']}, "
+                f"b={resume['b']}) vs current (n={n}, b={b})"
+            )
+        if int(resume["T_ncols"]) > T.band.shape[1]:
+            raise ValueError(
+                f"checkpoint Krylov prefix {resume['T_ncols']} exceeds the "
+                f"current cap {max_kryl} — raise max_kryl_dim"
+            )
+        AB0 = None
+    else:
+        # --- first iteration, unrolled ---
+        with timer.section("recurrence"):
+            Qnext, Bnext, Ai = first_step_fn(op, Qi, cdt=cdt, qr_method=qr_method)
+        AB0 = torch.stack([Ai, Bnext.to(Ai.dtype)]).cpu().numpy()  # one transfer
+        T.append_diag(AB0[0])
+        T.set_subdiag(AB0[1], 0)
+        tscale = np.abs(AB0[0]).max()
+        B_last = AB0[1]  # host copy of the newest B (degenerate-cap fallback)
+        Qprev, Qi, Bi = Qi, Qnext, Bnext
 
     # --- chunked, speculatively pipelined sweep ---
     # (a) one host read per chunk, returning all of its T blocks in a
@@ -473,17 +554,57 @@ def lanczos_iteration(
     converged = False
     i_max = max_kryl // b
     pr = cfg.partial_reorth_cadence
-    next_poll_cols = 0  # geometric poll backoff (see the poll block)
-    fine_poll = False  # near convergence: pin polls to the base cadence
-    danger = False     # near-invariant-subspace reorth escalation
-    selective = False  # sticky: dominant Ritz pair converged on a
-    #                    spectrum with compounding dominance — harvest()
-    calm_chunks = 0    # consecutive chunks clear of the danger regime
-    B_hist = {1: AB0[1]}  # B_{j+1} produced at iteration j, host copies
-    i = 1              # Lanczos iterations completed (host view)
-    i_next = 2         # first iteration of the next chunk to dispatch
-    dev_state = (Qi, Qprev, Bi)  # device-side recurrence state (dispatch order)
-    pr_stretch = 1  # adaptive full-scrub stretch (adaptive_reorth_max)
+    if resume is None:
+        next_poll_cols = 0  # geometric poll backoff (see the poll block)
+        fine_poll = False  # near convergence: pin polls to the base cadence
+        danger = False     # near-invariant-subspace reorth escalation
+        selective = False  # sticky: dominant Ritz pair converged on a
+        #                    spectrum with compounding dominance — harvest()
+        calm_chunks = 0    # consecutive chunks clear of the danger regime
+        B_hist = {1: AB0[1]}  # B_{j+1} produced at iteration j, host copies
+        i = 1              # Lanczos iterations completed (host view)
+        i_next = 2         # first iteration of the next chunk to dispatch
+        dev_state = (Qi, Qprev, Bi)  # device-side recurrence state (dispatch order)
+        pr_stretch = 1  # adaptive full-scrub stretch (adaptive_reorth_max)
+    else:
+        # --- restore the between-chunks invariant from a checkpoint ---
+        # (stored basis = Q_1..Q_{i-1} goes into the empty store; the
+        # recurrence triple is (Q_{i+1}, Q_i, B_{i+1}); T's band already
+        # includes the edge subdiag written at the end of the saved chunk)
+        bdt = store.buf.dtype
+        store.load_snapshot(resume["basis"])
+        tc = int(resume["T_ncols"])
+        T.band[:, :tc] = resume["band"][:, :tc]
+        T.ncols = tc
+        tscale = float(resume["tscale"])
+        B_last = np.asarray(resume["B_last"], dtype=np.float64)
+        B_hist = {
+            int(j): np.asarray(v, dtype=np.float64)
+            for j, v in resume["B_hist"].items()
+        }
+        i = int(resume["i"])
+        i_next = i + 1
+        next_poll_cols = int(resume["next_poll_cols"])
+        fine_poll = bool(resume["fine_poll"])
+        danger = bool(resume["danger"])
+        selective = bool(resume["selective"])
+        calm_chunks = int(resume["calm_chunks"])
+        pr_stretch = int(resume["pr_stretch"])
+
+        def _dev_arr(x, dt):
+            return torch.as_tensor(np.asarray(x)).to(device=dev, dtype=dt)
+
+        Qprev = _dev_arr(resume["Q_i"], bdt)
+        dev_state = (_dev_arr(resume["Q_ip1"], bdt), Qprev,
+                     _dev_arr(resume["B_ip1"], cdt))
+        if (resume.get("gen_state") is not None
+                and str(resume.get("gen_device")) == gen.device.type):
+            gen.set_state(torch.from_numpy(
+                np.ascontiguousarray(resume["gen_state"], dtype=np.uint8)))
+        else:
+            gen = torch.Generator(device=dev)
+            gen.manual_seed(cfg.seed + 1)
+        _dbg(f"resumed sweep at i={i} ({(i - 1) * b} basis columns)")
 
     # Rank check of the FIRST coupling block (the chunk scan below covers
     # later steps): a start block wider than the reachable subspace makes
@@ -492,30 +613,37 @@ def lanczos_iteration(
     # floor (~eps·‖A‖), NOT the scan's √eps·‖A‖ breakdown level; between
     # the two levels the coupling is honest but ghost-prone — danger-mode
     # reorth, no discard.
-    if not np.all(np.isfinite(AB0)):
-        raise FloatingPointError(
-            "non-finite T blocks at iteration 1 — operator output or "
-            "precision configuration is unstable "
-            f"(basis_dtype={cfg.basis_dtype}, compute_dtype={cfg.compute_dtype})"
-        )
-    sv0 = np.linalg.svd(AB0[1], compute_uv=False)
-    thr0 = 100.0 * eps * max(tscale, np.finfo(np.float64).tiny)
-    if thr0 <= sv0[-1] < np.sqrt(eps) * tscale:
-        danger = True
-    if sv0[-1] < thr0:
-        r0 = int(np.sum(sv0 >= thr0))  # may be 0: all σ at the floor
-        with timer.section("rerandomize"):
-            Q2, B_new0 = _repair_block(
-                store, Qprev, Qi, AB0[1], r0, lock_basis, gen, qr_method
+    if AB0 is not None:  # first-step path only (a resume skips iteration 1)
+        if not np.all(np.isfinite(AB0)):
+            raise FloatingPointError(
+                "non-finite T blocks at iteration 1 — operator output or "
+                "precision configuration is unstable "
+                f"(basis_dtype={cfg.basis_dtype}, compute_dtype={cfg.compute_dtype})"
             )
-        _dbg(f"partial breakdown at i=1: rank {r0}/{b} — repaired")
-        T.set_subdiag(B_new0, 0)
-        B_last = B_new0
-        B_hist[1] = B_new0
-        dev_state = (Q2, Qprev, on_device(B_new0))
-        danger = True  # at an invariant subspace: every-step CGS2
+        sv0 = np.linalg.svd(AB0[1], compute_uv=False)
+        thr0 = 100.0 * eps * max(tscale, np.finfo(np.float64).tiny)
+        if thr0 <= sv0[-1] < np.sqrt(eps) * tscale:
+            danger = True
+        if sv0[-1] < thr0:
+            r0 = int(np.sum(sv0 >= thr0))  # may be 0: all σ at the floor
+            with timer.section("rerandomize"):
+                Q2, B_new0 = _repair_block(
+                    store, Qprev, Qi, AB0[1], r0, lock_basis, gen, qr_method
+                )
+            _dbg(f"partial breakdown at i=1: rank {r0}/{b} — repaired")
+            T.set_subdiag(B_new0, 0)
+            B_last = B_new0
+            B_hist[1] = B_new0
+            dev_state = (Q2, Qprev, on_device(B_new0))
+            danger = True  # at an invariant subspace: every-step CGS2
 
-    n_chunks = 0  # chunks dispatched so far (drives geometric chunk growth)
+    # chunks dispatched so far (drives geometric chunk growth)
+    n_chunks = int(resume["n_chunks"]) if resume is not None else 0
+    chunks_done = int(resume["chunks_done"]) if resume is not None else 0
+    # checkpoint-policy plumbing: see RBLConfig.sweep_checkpoint_path
+    ck_path = cfg.sweep_checkpoint_path
+    ck_every = cfg.sweep_checkpoint_every
+    abort_after = cfg.fault_inject_abort_after_chunks
     growth_cap = cfg.chunk_growth_cap
 
     def dispatch():
@@ -541,6 +669,10 @@ def lanczos_iteration(
         else:
             grow = 1
         S = min(cfg.eig_poll_cadence * grow, i_max - i0 + 1)
+        if cfg.basis_device_cap_cols is not None:
+            # the two-tier store needs ≥ 2·window + 2b device-resident
+            # columns per append window (BasisStore._ensure feasibility)
+            S = max(1, min(S, (cfg.basis_device_cap_cols // b - 2) // 2))
         # danger mode: ‖B‖ has collapsed toward an invariant subspace, where
         # ghost components of converged directions re-amplify by ~‖A‖/‖B‖
         # per iteration — reorthogonalize EVERY step with CGS2 against the
@@ -550,17 +682,86 @@ def lanczos_iteration(
         else:
             pr_eff = pr * pr_stretch
             reorth_pattern = tuple((i0 + s) % pr_eff == 0 for s in range(S))
-        col0 = store.ncols
+        store._ensure(store.ncols + S * b)
+        col0 = store.ncols                  # global column
+        col = col0 - store.dev_base         # column in the device buffer
         npass = 2 if (danger or selective) else 1
         with timer.section("sweep_dispatch"):
-            _, Qi_n, Qprev_n, Bi_n, TB = _sweep_chunk(
-                op, store.buf, dev_state[0], dev_state[1], dev_state[2],
-                col0, lock_basis,
-                cdt=cdt, qr_method=qr_method, nsteps=S,
-                reorth_pattern=reorth_pattern,
-                loc_passes=cfg.loc_reorth_passes,
-                reorth_passes=npass,
-            )
+            if store.host_ncols and any(reorth_pattern):
+                # Hybrid reorth, host tier (reference hybrid_part_reorth!,
+                # RBL_gpu.jl:59-81), re-designed for T-consistency: the
+                # offloaded panels re-enter the device and project EVERY
+                # full-scrub newborn residual U before its QR (a split
+                # step); runs of local-only steps between full scrubs go
+                # through _sweep_chunk.  One split step per window is NOT
+                # enough: leaks along offloaded dominant directions
+                # re-amplify by ~|λ|max/|λ|min per step, so a window's
+                # later full scrubs seeing only the device tier lose the
+                # basis.  The panels must never scrub the live pair
+                # (Qi, Qprev): those blocks' T couplings (A_{i-1}, B_i)
+                # are already recorded, and a retroactive edit makes
+                # T ≠ QᵀAQ by O(‖leak‖·‖A‖).
+                buf = store.buf
+                Qi_n, Qprev_n, Bi_n = dev_state
+                bdt_ = Qi_n.dtype
+                TBs = []
+                s = 0
+                while s < S:
+                    if reorth_pattern[s]:
+                        U, Ai0 = _split_step_recur(
+                            op, buf, Qi_n, Qprev_n, Bi_n, col, cdt=cdt
+                        )
+                        # Panel-major, not pass-major: each host panel
+                        # crosses to the device once and is projected
+                        # npass times consecutively.  Pass-major (the
+                        # textbook BCGS2 sweep order) would either
+                        # re-transfer the whole host tier per pass or hold
+                        # every panel on the device at once — and the tier
+                        # exists precisely because device memory is full.
+                        # Reordering is safe because the panels are
+                        # mutually orthonormal to basis precision:
+                        # cross-panel re-injection from a later projection
+                        # is O(‖QᵢᵀQⱼ‖·eps·‖U‖), far below the CGS2 floor.
+                        stored = buf[:, : col + b]
+                        for _ in range(npass):
+                            U = project_out(stored, U)
+                        for panel in store.stream_host_tier():
+                            for _ in range(npass):
+                                U = project_out(panel, U)
+                        for _ in range(npass):
+                            U = project_out(Qi_n, U)
+                        Q1, B1 = _split_step_qr(
+                            U, lock_basis, qr_method=qr_method, bdt=bdt_
+                        )
+                        TBs.append(torch.stack([Ai0, B1.to(Ai0.dtype)]))
+                        timer.add("basis_split_steps", 1)
+                        Qi_n, Qprev_n, Bi_n = Q1, Qi_n, B1
+                        col += b
+                        s += 1
+                    else:
+                        e = s
+                        while e < S and not reorth_pattern[e]:
+                            e += 1
+                        _, Qi_n, Qprev_n, Bi_n, TBseg = _sweep_chunk(
+                            op, buf, Qi_n, Qprev_n, Bi_n, col, lock_basis,
+                            cdt=cdt, qr_method=qr_method, nsteps=e - s,
+                            reorth_pattern=reorth_pattern[s:e],
+                            loc_passes=cfg.loc_reorth_passes,
+                            reorth_passes=npass,
+                        )
+                        TBs.append(TBseg)
+                        col += (e - s) * b
+                        s = e
+                TB = torch.cat(TBs, dim=0) if len(TBs) > 1 else TBs[0]
+            else:
+                _, Qi_n, Qprev_n, Bi_n, TB = _sweep_chunk(
+                    op, store.buf, dev_state[0], dev_state[1], dev_state[2],
+                    col, lock_basis,
+                    cdt=cdt, qr_method=qr_method, nsteps=S,
+                    reorth_pattern=reorth_pattern,
+                    loc_passes=cfg.loc_reorth_passes,
+                    reorth_passes=npass,
+                )
         store.ncols = col0 + S * b
         dev_state = (Qi_n, Qprev_n, Bi_n)
         i_next = i0 + S
@@ -570,7 +771,9 @@ def lanczos_iteration(
 
     def rewind_to(ncols_new):
         """Discard basis columns beyond ncols_new (speculated, degenerate,
-        or post-convergence writes)."""
+        or post-convergence writes).  Tier-aware: with a host tier, a stale
+        convergence poll or a breakdown can target columns that were
+        already offloaded — BasisStore.rewind drops or trims panels."""
         store.rewind(ncols_new)
 
     # Full eig factorizations run in a worker thread (LAPACK releases the
@@ -1027,6 +1230,44 @@ def lanczos_iteration(
                     break
             if collapse_at is None and explosion_at is None:
                 T.set_subdiag(B_last, i - 1)
+            chunks_done += 1
+            handler_fired = any(
+                x is not None
+                for x in (collapse_at, danger_at, partial_at, explosion_at)
+            )
+            if ck_path and not handler_fired and chunks_done % ck_every == 0:
+                # Clean chunk boundary: the invariant state is exactly what
+                # resume needs — basis prefix Q_1..Q_{i-1}, the triple
+                # (Q_{i+1}, Q_i, B_{i+1}) from THIS chunk's snapshot
+                # (``dev_state`` may already hold speculated later state),
+                # T including the edge subdiag just written, and the
+                # policy flags.  The basis prefix is read on the host, so
+                # the save waits for the device.
+                from ..utils.checkpoint import save_sweep_state
+
+                with timer.section("checkpoint"):
+                    save_sweep_state(ck_path, dict(
+                        n=n, b=b, k=k, i=i, chunks_done=chunks_done,
+                        n_chunks=n_chunks,
+                        T_ncols=T.ncols, band=T.band[:, : T.ncols],
+                        basis=store.snapshot((i - 1) * b),
+                        Q_ip1=cur["Qi"], Q_i=cur["Qprev"], B_ip1=cur["Bi"],
+                        tscale=float(tscale), B_last=B_last, B_hist=B_hist,
+                        danger=danger, selective=selective,
+                        calm_chunks=calm_chunks, pr_stretch=pr_stretch,
+                        fine_poll=fine_poll, next_poll_cols=next_poll_cols,
+                        # the JAX package reads ``key`` on resume: the
+                        # threefry key it would itself start from
+                        key=np.array([0, (cfg.seed + 1) & 0xFFFFFFFF],
+                                     dtype=np.uint32),
+                        gen_state=gen.get_state().numpy(),
+                        gen_device=gen.device.type,
+                    ))
+            if abort_after is not None and chunks_done >= abort_after:
+                raise SweepAborted(
+                    f"fault injection: aborting after {chunks_done} processed "
+                    f"chunks (i={i})"
+                )
             top_up()
 
         final_panels = None if pending is None else pending["npanels"]

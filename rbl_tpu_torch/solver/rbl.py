@@ -6,6 +6,7 @@ operator lives.
 
 from __future__ import annotations
 
+import os
 from typing import Any, Optional
 
 import numpy as np
@@ -127,7 +128,7 @@ def _rbl_impl(op, k, cfg, compute_eigenvectors, timer, v0=None, deflate=None):
     max_kryl = clamp_kryl_dim(
         cfg.max_kryl_dim, n, b, cfg.basis_dtype, cfg.compute_dtype,
         budget_fraction=cfg.hbm_budget_fraction, device=dev,
-    )
+    )  # the same clamp under basis_device_cap_cols, as in the JAX package
     if max_kryl < k:
         # The final Rayleigh–Ritz can produce at most max_kryl pairs;
         # proceeding would silently return fewer than k eigenpairs.
@@ -155,9 +156,27 @@ def _rbl_impl(op, k, cfg, compute_eigenvectors, timer, v0=None, deflate=None):
         device_cap_cols=cfg.basis_device_cap_cols,
     )
 
+    # Mid-sweep fault tolerance (SURVEY §5: the reference has none): an
+    # existing checkpoint at sweep_checkpoint_path means a previous solve
+    # was interrupted — resume it instead of restarting.  The file is
+    # deleted once THIS solve completes, so a finished solve never leaks
+    # stale state into the next call.
+    resume = None
+    ck_path = cfg.sweep_checkpoint_path
+    if ck_path is not None and os.path.exists(ck_path):
+        from ..utils.checkpoint import load_sweep_state
+
+        resume = load_sweep_state(ck_path)
+
     w_sel, V_sel, T, bounds, converged, nblocks = lanczos_iteration(
-        op, k, cfg, Qi, store, lock_basis=lock, timer=timer, generator=gen
+        op, k, cfg, Qi, store, lock_basis=lock, timer=timer, generator=gen,
+        resume=resume,
     )
+    if ck_path is not None and os.path.exists(ck_path):
+        os.remove(ck_path)
+    if timer is not None and store.device_cap_cols is not None:
+        timer.add("basis_host_panels", store.panels_written)
+        timer.add("basis_d2h_bytes", store.d2h_bytes)
 
     # ascending-|λ| → descending, as the reference returns
     # (D[end:-1:1], V[:,end:-1:1] — RBL.jl:116)
@@ -181,6 +200,9 @@ def _rbl_impl(op, k, cfg, compute_eigenvectors, timer, v0=None, deflate=None):
             # TRUE residuals contradict it, the basis degraded and the
             # convergence claim is not trustworthy
             converged = False
+    if timer is not None and store.device_cap_cols is not None:
+        # after the recovery, which streams the panels once more
+        timer.add("basis_h2d_bytes", store.h2d_bytes)
 
     return LanczosResult(
         eigenvalues=D,

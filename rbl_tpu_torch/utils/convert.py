@@ -14,27 +14,27 @@ import torch
 
 from ..config import RBLConfig, resolve_device
 from ..ops.spmm.bsr import BlockSparseOperator
-from ..ops.spmm.coo import CooOperator, HybOperator
+from ..ops.spmm.coo import CooOperator, HybOperator, RectCooOperator
 from ..ops.spmm.dia import DiaOperator
 from ..ops.spmm.ell import SparseEllOperator
-from ..ops.spmm.operator import DenseOperator, DiagonalOperator, Laplacian2D
+from ..ops.spmm.operator import (
+    DenseOperator,
+    DiagonalOperator,
+    GramOperator,
+    Laplacian2D,
+    SparseGramOperator,
+)
 
 # RBLConfig fields of the JAX package that exist only for the TPU: dropped.
 _TPU_ONLY_FIELDS = frozenset({
     "chunk_growth_cap_f64", "fault_retries", "min_basis_cols",
 })
-# Fields of features not ported yet, with the JAX package's defaults: a
-# config that leaves them at the default converts, any other raises.
+# Fields of features not ported yet (the mesh of ``parallel/``), with the JAX
+# package's defaults: a config that leaves them at the default converts,
+# any other raises.
 _NOT_PORTED_DEFAULTS = {
     "mesh": None,
     "rows_axis": "rows",
-    "sweep_checkpoint_path": None,
-    "sweep_checkpoint_every": 1,
-    "fault_inject_abort_after_chunks": None,
-    "restart_kryl_dim": 100,
-    "restart_growth": 10,
-    "restart_reorth_cadence": 3,
-    "restart_growth_policy": "stall",
 }
 
 
@@ -52,7 +52,8 @@ def torch_dtype(dt) -> torch.dtype:
 
 def config_from_fields(fields: dict) -> RBLConfig:
     """An RBLConfig from the fields of the JAX package's RBLConfig (e.g.
-    ``dataclasses.asdict(cfg)``).  Drops the TPU-only fields; raises
+    ``dataclasses.asdict(cfg)``), the checkpoint, fault-injection and
+    restart knobs included.  Drops the TPU-only fields; raises
     NotImplementedError for a feature the port does not have yet."""
     kw = {}
     for name, value in fields.items():
@@ -83,8 +84,14 @@ def operator_from_arrays(kind: str, arrays: dict[str, np.ndarray],
     vals; _n), "CooOperator" (rows, cols, vals; _n, _chunk),
     "HybOperator" (the ELL part's arrays as ell_cols, ell_vals and the COO
     part's as coo_rows, coo_cols, coo_vals; _n, _chunk),
-    "DiagonalOperator" (diag), "DenseOperator" (mat) or "Laplacian2D"
-    (static nx, ny, _dtype)."""
+    "DiagonalOperator" (diag), "DenseOperator" (mat), "Laplacian2D"
+    (static nx, ny, _dtype), "GramOperator" (B; left), "RectCooOperator"
+    (rows, cols, vals; _m, _ncols, _chunk) or "SparseGramOperator" (the
+    forward factor's arrays as bf_rows, bf_cols, bf_vals and the
+    transpose's as bt_rows, bt_cols, bt_vals; _m, _ncols, left, _chunk).
+
+    A ``RestartState`` and a sweep state cross as the .npz files of
+    ``utils.checkpoint``, which both packages read and write."""
     dev = resolve_device(device)
 
     def t(name):
@@ -126,5 +133,23 @@ def operator_from_arrays(kind: str, arrays: dict[str, np.ndarray],
         return Laplacian2D(
             nx=int(static["nx"]), ny=int(static["ny"]),
             dtype=torch_dtype(static.get("_dtype", np.float64)), device=dev,
+        )
+    if kind == "GramOperator":
+        return GramOperator(B=t("B"), left=bool(static.get("left", False)))
+    chunk = int(static.get("_chunk", 1 << 22))
+    if kind == "RectCooOperator":
+        return RectCooOperator(rows=t("rows"), cols=t("cols"), vals=t("vals"),
+                               _m=int(static["_m"]),
+                               _ncols=int(static["_ncols"]), _chunk=chunk)
+    if kind == "SparseGramOperator":
+        m, ncols = int(static["_m"]), int(static["_ncols"])
+        return SparseGramOperator(
+            Bf=RectCooOperator(rows=t("bf_rows"), cols=t("bf_cols"),
+                               vals=t("bf_vals"), _m=m, _ncols=ncols,
+                               _chunk=chunk),
+            Bt=RectCooOperator(rows=t("bt_rows"), cols=t("bt_cols"),
+                               vals=t("bt_vals"), _m=ncols, _ncols=m,
+                               _chunk=chunk),
+            left=bool(static.get("left", False)),
         )
     raise ValueError(f"unknown operator kind {kind!r}")

@@ -21,6 +21,12 @@ class Timer:
         self.sync = sync
         self.times = defaultdict(float)
         self.counts = defaultdict(int)
+        self.counters = defaultdict(int)  # named totals (bytes, panels)
+
+    def add(self, name: str, value) -> None:
+        """Add ``value`` to the named counter (e.g. the bytes a solve's
+        basis store moved between its tiers)."""
+        self.counters[name] += value
 
     def _barrier(self):
         if self.sync and torch.cuda.is_available():
@@ -46,6 +52,9 @@ class Timer:
 
 
 class _NullTimer:
+    def add(self, name: str, value) -> None:
+        pass
+
     @contextlib.contextmanager
     def section(self, name: str):
         yield

@@ -200,3 +200,98 @@ def test_cuda_tile_stream_kernels_match_reference(variant):
         assert tds.error_ratio(out, ref, scale) <= 1.0
         assert tds.error_ratio(plain(*args, **kw), ref, scale) <= 1.0
         assert torch.equal(out, again)
+
+
+# --- the pinned-host basis tier and the sweep checkpoint on the card -------
+
+
+def _needs_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: pinned panels and copy streams")
+
+
+@pytest.mark.gpu
+def test_host_panels_are_pinned_and_copied_before_their_columns_are_reused():
+    """A store under a cap, fed 50 blocks whose column j holds the value
+    j: every panel is pinned memory, and every stored column — read back
+    through read_block, the panels, stream_host_tier and snapshot — holds
+    its own index, so each panel's device→host copy had read its columns
+    before the compaction overwrote them."""
+    _needs_card()
+    from rbl_tpu_torch.solver.basis import BasisStore
+
+    n, b, cap = 200_000, 4, 64
+    store = BasisStore(n, b, max_cols=50 * b, dtype=torch.float32,
+                       device="cuda", device_cap_cols=cap)
+    for i in range(50):
+        cols = torch.arange(i * b, (i + 1) * b, dtype=torch.float32, device="cuda")
+        store.append(cols.expand(n, b))
+    assert len(store.host_tier()) >= 2
+    assert all(p.is_pinned() and p.device.type == "cpu" for p in store.host_tier())
+    assert store.host_ncols + store.dev_ncols == 200
+    want = np.arange(200, dtype=np.float32)
+    snap = store.snapshot(200)
+    assert np.array_equal(snap[0], want) and np.array_equal(snap[-1], want)
+    assert np.array_equal(snap.min(axis=0), want) and np.array_equal(snap.max(axis=0), want)
+    for col in range(0, 200, b):
+        blk = store.read_block(col, b)
+        assert blk.device.type == "cuda"
+        assert torch.equal(blk[::50_000], torch.arange(
+            col, col + b, dtype=torch.float32, device="cuda").expand(4, b))
+    off = 0
+    for panel in store.stream_host_tier():
+        w = panel.shape[1]
+        assert panel.device.type == "cuda"
+        lo, hi = panel.min(dim=0).values, panel.max(dim=0).values
+        ref = torch.arange(off, off + w, dtype=torch.float32, device="cuda")
+        assert torch.equal(lo, ref) and torch.equal(hi, ref)
+        off += w
+    assert off == store.host_ncols
+
+
+def _fem_cfg(**kw):
+    return rtt.RBLConfig(block_size=4, basis_dtype=torch.float32,
+                         compute_dtype=torch.float32, qr_method="cholqr2",
+                         tol=1e-3, max_kryl_dim=400, **kw)
+
+
+@pytest.mark.gpu
+def test_capped_solve_equals_the_uncapped_one_on_the_card():
+    """fem_elasticity_3d(12) through the packed kernel, f32, tol 1e-3: the
+    solve under basis_device_cap_cols=64 passes the cap, writes pinned
+    panels, and returns the uncapped solve's eigenvalues within 1e-4
+    relative (both stop at the same residual bound)."""
+    _needs_card()
+    from rbl_tpu_torch.utils.profiling import Timer
+
+    op = rtt.as_operator(fem_elasticity_3d(12), dtype=torch.float32,
+                         device="cuda", format="bsr")
+    ref = rtt.rbl(op, 12, cfg=_fem_cfg())
+    timer = Timer()
+    res = rtt.rbl(op, 12, cfg=_fem_cfg(basis_device_cap_cols=64), timer=timer)
+    assert res.kryl_dim > 64 and timer.counters["basis_host_panels"] >= 1
+    assert timer.counters["basis_h2d_bytes"] > 0
+    assert rel_err(res.eigenvalues, ref.eigenvalues) < 1e-4
+    V = res.eigenvectors
+    assert float((V.T @ V - torch.eye(12, device="cuda")).abs().max()) < 1e-3
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cap", [None, 64])
+def test_sweep_resume_on_the_card(cap, tmp_path):
+    """Abort after 4 chunks, resume from the file: the resumed solve ends as
+    the uninterrupted one (eigenvalues within the solve's 1e-3) and removes
+    its file; with a cap the resume refills the host tier."""
+    _needs_card()
+    op = rtt.as_operator(fem_elasticity_3d(12), dtype=torch.float32,
+                         device="cuda", format="bsr")
+    path = str(tmp_path / "sweep.npz")
+    ref = rtt.rbl(op, 12, cfg=_fem_cfg(basis_device_cap_cols=cap))
+    cfg = _fem_cfg(basis_device_cap_cols=cap, sweep_checkpoint_path=path)
+    with pytest.raises(rtt.SweepAborted):
+        rtt.rbl(op, 12, cfg=cfg.replace(fault_inject_abort_after_chunks=4))
+    assert (tmp_path / "sweep.npz").exists()
+    res = rtt.rbl(op, 12, cfg=cfg)
+    assert not (tmp_path / "sweep.npz").exists()
+    assert res.converged == ref.converged
+    assert rel_err(res.eigenvalues, ref.eigenvalues) < 1e-3

@@ -125,8 +125,11 @@ def test_basis_store_rewind_keeps_zero_padding():
     assert torch.all(blk == 3.0)  # a read block is a copy, not a view
     with pytest.raises(IndexError):
         st.read_block(2, 2)
-    with pytest.raises(NotImplementedError):
-        BasisStore(50, 2, 10, torch.float64, CPU, device_cap_cols=4)
+    # a device cap builds the two-tier store: rounded up to 4 blocks, the
+    # buffer no wider than the cap (tests/test_torch_basis_tier.py)
+    capped = BasisStore(50, 2, 10, torch.float64, CPU, device_cap_cols=4)
+    assert capped.device_cap_cols == 8 and capped.capacity == 8
+    assert capped.host_tier() == []
 
 
 def test_fresh_directions_and_start_block():

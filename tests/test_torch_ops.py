@@ -284,7 +284,7 @@ def test_operator_from_arrays_kinds():
     assert rel_err(dense.apply(_t(X)).numpy(), M @ X) < TOL
     assert lap.dtype == torch.float32 and lap.shape == (30, 30)
     with pytest.raises(ValueError):
-        operator_from_arrays("RectCooOperator", {}, {}, CPU)
+        operator_from_arrays("ShiftInvertOperator", {}, {}, CPU)
 
 
 def test_config_defaults_and_conversion():
@@ -299,8 +299,11 @@ def test_config_defaults_and_conversion():
     )))
     assert conv.basis_dtype == torch.bfloat16 and conv.compute_dtype == torch.float32
     assert conv.block_size == 16 and conv.resolved_qr_method() == "cholqr2"
+    # the checkpoint knobs cross; the mesh of parallel/ is not ported yet
+    assert config_from_fields(dataclasses.asdict(
+        jcfg.replace(sweep_checkpoint_path="x"))).sweep_checkpoint_path == "x"
     with pytest.raises(NotImplementedError):
-        config_from_fields(dataclasses.asdict(jcfg.replace(sweep_checkpoint_path="x")))
+        config_from_fields(dataclasses.asdict(jcfg.replace(rows_axis="cols")))
     with pytest.raises(TypeError):
         rtt.RBLConfig(compute_dtype=np.float32)
 
