@@ -76,8 +76,15 @@ a user calls, and checks the answers:
      scipy.sparse.linalg.svds (1e-8 and 1e-6 relative) and by
      ‖B·V − U·diag(s)‖.
 
-Phases 11-14 launch B1/B2 through BlockSparseOperator.apply: the kernels'
-record adds their launches to phase 5's.  The last two lines are the kernels' JSON record and the JSON result.  Any
+Phases 11-14 launch B1/B2 through BlockSparseOperator.apply.  Phase 14's
+fem42 polish applies A to k + buffer + random columns at once (48 here),
+in f64 and in f32 filter chains, so after it both packed entry points
+are held against the plain version on fem42 at that width, f32 and f64,
+and timed.  In the kernels' record ``launches`` is the count of the path
+the row's times were taken on (phases 4-5 for B1/B2) and
+``launches_by_phase`` holds every path's own count; phases 11-13 must
+launch B1 and phase 14 both B1 (its f32 coarse sweep) and B2.  The last
+two lines are the kernels' JSON record and the JSON result.  Any
 failure raises, and the script exits non-zero; it also exits non-zero,
 printing no result, when no CUDA device is available.
 """
@@ -487,7 +494,8 @@ def phase_restarted(op32, head, card: str):
 
 
 def phase_polish(A, head, card: str):
-    """Phase 14."""
+    """Phase 14; returns fem42's f64 operator and the width (columns) the
+    polish applied it at."""
     import torch
 
     import rbl_tpu_torch as rt
@@ -546,6 +554,7 @@ def phase_polish(A, head, card: str):
           f"{wall:.3f} s, {res.iterations} passes over {res.kryl_dim} columns, "
           f"worst residual {worst:.3e}·‖A‖, max rel err (ARPACK head 20) "
           f"{err:.3e}  [{card}]")
+    return op64, int(res.kryl_dim)
 
 
 def phase_svd(card: str):
@@ -701,28 +710,45 @@ def main() -> int:
               f"{bsr.bsr_spmm_packed_resident.launches} streaming="
               f"{bsr.bsr_spmm_packed.launches}  [{card}]")
     launches = {f.__name__: f.launches for f in every}
+    by_phase = {name: {} for name in KERNELS}
     print(f"main path: {time.perf_counter() - t_main:.1f} s")
     for f in packed:
+        by_phase[f.__name__]["4-5"] = launches[f.__name__]
         if launches[f.__name__] < 1:
             raise AssertionError(f"main path never launched {f.__name__}")
 
     # --- 11.-14. the long-solve paths, each read on its own ------------------
-    def long_phase(number, fn, *args):
+    def long_phase(number, must_launch, fn, *args):
         reset_launches(*every)
         t0 = time.perf_counter()
         out = fn(*args)
         counts = {f.__name__: f.launches for f in packed}
-        if not any(counts.values()):
-            raise AssertionError(f"phase {number} launched neither packed kernel")
+        for f in must_launch:
+            if counts[f.__name__] < 1:
+                raise AssertionError(f"phase {number} never launched {f.__name__}")
         for name, c in counts.items():
-            launches[name] += c
+            by_phase[name][str(number)] = c
         print(f"phase {number}: {time.perf_counter() - t0:.1f} s, launches {counts}")
         return out
 
-    long_phase(11, phase_host_tier, op32, head, fem_res[8], fem_wall[8], card)
-    long_phase(12, phase_sweep_checkpoint, op32, head, fem_res[8], card)
-    long_phase(13, phase_restarted, op32, head, card)
-    long_phase(14, phase_polish, A, head, card)
+    B1, B2 = packed
+    long_phase(11, (B1,), phase_host_tier, op32, head, fem_res[8], fem_wall[8], card)
+    long_phase(12, (B1,), phase_sweep_checkpoint, op32, head, fem_res[8], card)
+    long_phase(13, (B1,), phase_restarted, op32, head, card)
+    op64, width = long_phase(14, (B1, B2), phase_polish, A, head, card)
+    # the polish's own shape: both entry points at its width on fem42's
+    # plan, in the f32 of its filter chains and the f64 of its Rayleigh-Ritz
+    if (op64.bm, op64.unroll) != (op32.bm, op32.unroll):
+        raise AssertionError(f"fem42's f64 plan ({op64.bm}, {op64.unroll}) differs "
+                             f"from the f32 one ({op32.bm}, {op32.unroll})")
+    for entry in ("bsr_spmm_packed_resident", "bsr_spmm_packed"):
+        for op in (op32, op64):
+            _, rel, ms, plain_ms, moved, ops = compare_entry(
+                entry, op, width, seed=width, timing=True)
+            print(f"{entry} fem42 b={width} {op.dtype} (the polish's width): rel "
+                  f"err {rel:.2e}, kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+                  f"bound {bound(moved, ops)['bound_ms']:.4f} ms  [{card}]")
+    del op64
 
     # --- 6. blocked-ELL (B3) and panel (B4) against their plain versions --
     t6 = time.perf_counter()
@@ -753,7 +779,7 @@ def main() -> int:
     reset_launches(*every)
     AV = bsr.bsr_spmm(bc, bv32, Vp, bm=128, bk=128, L=L)[: A.shape[0]]
     torch.cuda.synchronize()
-    launches["bsr_spmm"] = bsr.bsr_spmm.launches
+    launches["bsr_spmm"] = by_phase["bsr_spmm"]["6"] = bsr.bsr_spmm.launches
     AV_csr = torch.sparse.mm(csr32, V)
     path_err = float((AV - AV_csr).abs().max() / AV_csr.abs().max())
     resid = ((AV - V * lam[None, :]).norm(dim=0) / lam.abs()).max().item()
@@ -871,7 +897,8 @@ def main() -> int:
                                                device="cuda")
     reset_launches(*every)
     res, wall, err = fem_solve(pan32, 100, 8, head, "fem42 panel")
-    launches["bsr_spmm_panel"] = bsr.bsr_spmm_panel.launches
+    launches["bsr_spmm_panel"] = by_phase["bsr_spmm_panel"]["7"] = \
+        bsr.bsr_spmm_panel.launches
     print(f"fem42 panel k=100 b=8 f32: wall {wall:.3f} s, max rel err (ARPACK "
           f"head 90) {err:.3e}, kryl_dim {res.kryl_dim}, converged "
           f"{res.converged}, bsr_spmm_panel launches "
@@ -1001,7 +1028,7 @@ def main() -> int:
               f"{kernels['bsr_spmm_packed']['ms']:.4f} ms)  [{card}]")
     torch.cuda.synchronize()
     for f in probes:
-        launches[f.__name__] = f.launches
+        launches[f.__name__] = by_phase[f.__name__]["10"] = f.launches
         if f.launches < 1:
             raise AssertionError(f"the probe never launched {f.__name__}")
     print(f"probe launches {{{', '.join(f'{f.__name__}: {f.launches}' for f in probes)}}}"
@@ -1017,7 +1044,8 @@ def main() -> int:
 
     record = {"kernels": [
         dict(name=name, route="cuda", source=src, replaces=rep,
-             launches=launches[name], **kernels[name])
+             launches=launches[name], launches_by_phase=by_phase[name],
+             **kernels[name])
         for name, (src, rep) in KERNELS.items()
     ]}
     print(card)

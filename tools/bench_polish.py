@@ -3,7 +3,9 @@
 native f64?
 
     python3 tools/bench_polish.py [--device cpu] [--nx 512] [--k 50]
-                                  [--tol 1e-7] [--cap 1400] [--out FILE]
+                                  [--tol 1e-7] [--cap 1400] [--big-cap 8000]
+                                  [--long-restart-kryl 1024]
+                                  [--long-max-restarts 100] [--out FILE]
 
 Times, on the nx² Dirichlet Laplacian (matrix-free stencil, f64) at the
 reference's own tolerance (absolute residual 1e-7, RBL.jl:109), the k
@@ -16,8 +18,18 @@ largest eigenpairs through four routes of ``rbl_tpu_torch``:
   - ``rbl_restarted`` in f64 (b = 8, ``--restart-kryl`` columns a sweep, at
     most ``--max-restarts`` restarts, ``poll_ahead=16``).
 
+The caps above are bench.py's, not the card's: a 1,400-column f64 basis is
+a few per cent of an 80 GB card.  So that the verdict does not rest on
+them, two more rows give the plain routes room (0 turns a row off):
+
+  - ``rbl`` f64, b = 8, with a Krylov cap of ``--big-cap`` columns (what
+    ``clamp_kryl_dim`` still lets through on the card);
+  - ``rbl_restarted`` f64, b = 8, with sweeps of ``--long-restart-kryl``
+    columns and up to ``--long-max-restarts`` restarts.
+
 Each route runs twice (seeds 0 and 1) and the second, warm run is timed on
-the host's clock, ending in a device synchronisation.  Each row carries its
+the host's clock, ending in a device synchronisation; the two roomy rows
+run once (seed 1), after the others have warmed the card.  Each row carries its
 max relative eigenvalue error against the analytic spectrum (over the pairs
 it returned), its worst residual, its converged flag and the pairs it
 returned.  Prints the card's name and power limit and one JSON object;
@@ -56,6 +68,9 @@ def main() -> int:
     ap.add_argument("--cap", type=int, default=1400)
     ap.add_argument("--restart-kryl", type=int, default=256)
     ap.add_argument("--max-restarts", type=int, default=30)
+    ap.add_argument("--big-cap", type=int, default=8000)
+    ap.add_argument("--long-restart-kryl", type=int, default=1024)
+    ap.add_argument("--long-max-restarts", type=int, default=100)
     ap.add_argument("--out", default=None, help="also write the JSON here")
     args = ap.parse_args()
 
@@ -77,22 +92,34 @@ def main() -> int:
     base = rt.RBLConfig(tol=args.tol, qr_method="cholqr2", eig_poll_cadence=16,
                         max_kryl_dim=args.cap)
 
-    def plain(b):
-        return lambda seed: rt.rbl(op, k, b, cfg=base.replace(seed=seed))
+    def plain(b, cap):
+        return lambda seed: rt.rbl(
+            op, k, b, cfg=base.replace(seed=seed, max_kryl_dim=cap))
 
+    def restarted(kryl, restarts):
+        return lambda seed: rt.rbl_restarted(
+            op, k, cfg=base.replace(seed=seed, restart_kryl_dim=kryl),
+            b=8, max_restarts=restarts, poll_ahead=16)
+
+    # route → (solve, seeds): the last seed's run is the one timed
     routes = {
-        "rbl_f64_b8": plain(8),
-        "rbl_f64_b16": plain(16),
-        "rbl_polished_b8": lambda seed: rt.rbl_polished(
+        "rbl_f64_b8": (plain(8, args.cap), (0, 1)),
+        "rbl_f64_b16": (plain(16, args.cap), (0, 1)),
+        "rbl_polished_b8": (lambda seed: rt.rbl_polished(
             op, k, cfg=base.replace(seed=seed, block_size=8), b=8,
-            bounds=(0.0, None)),
-        "rbl_restarted_f64_b8": lambda seed: rt.rbl_restarted(
-            op, k, cfg=base.replace(seed=seed, restart_kryl_dim=args.restart_kryl),
-            b=8, max_restarts=args.max_restarts, poll_ahead=16),
+            bounds=(0.0, None)), (0, 1)),
+        "rbl_restarted_f64_b8": (
+            restarted(args.restart_kryl, args.max_restarts), (0, 1)),
     }
+    if args.big_cap:
+        routes[f"rbl_f64_b8_cap{args.big_cap}"] = (plain(8, args.big_cap), (1,))
+    if args.long_restart_kryl and args.long_max_restarts:
+        routes[f"rbl_restarted_f64_b8_kryl{args.long_restart_kryl}"
+               f"_restarts{args.long_max_restarts}"] = (
+            restarted(args.long_restart_kryl, args.long_max_restarts), (1,))
     rows = []
-    for name, run in routes.items():
-        for seed in (0, 1):  # the second, warm run is timed
+    for name, (run, seeds) in routes.items():
+        for seed in seeds:
             t0 = time.perf_counter()
             res = run(seed)
             if dev.type == "cuda":
@@ -113,6 +140,8 @@ def main() -> int:
               flush=True)
     record = dict(card=card, nx=nx, k=k, tol=args.tol, cap=args.cap,
                   restart_kryl=args.restart_kryl, max_restarts=args.max_restarts,
+                  big_cap=args.big_cap, long_restart_kryl=args.long_restart_kryl,
+                  long_max_restarts=args.long_max_restarts,
                   rows=rows)
     text = json.dumps(record)
     if args.out:
