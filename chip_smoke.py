@@ -74,17 +74,41 @@ a user calls, and checks the answers:
      values 0.9^i (k = 20) and of a seeded sparse 200,000 × 50,000 matrix
      with 10 nonzeros a row and decaying column scales (k = 10), against
      scipy.sparse.linalg.svds (1e-8 and 1e-6 relative) and by
-     ‖B·V − U·diag(s)‖.
+     ‖B·V − U·diag(s)‖;
+ 16. shift-invert on the 512² Laplacian: rbl (k = 4, b = 4) on
+     ShiftInvertOperator.shift(Laplacian2D(512, 512), σ) through the exact
+     FDM solve at σ = 0 in f64 and f32, through the multigrid-preconditioned
+     MINRES (precond="mg") in f64, and through FDM at an interior σ between
+     two eigenvalues (the 4 nearest); eigenvalues by Rayleigh quotients with
+     A in f64 against the analytic spectrum (1e-9 relative in f64, 1e-4 in
+     f32), with each run's inner MINRES iterations an apply;
+ 17. the FEM vibration problem K·x = λ·M·x: K = fem_elasticity_3d(42), M
+     its lumped mass (each node's share of its adjacent hexes, over the 3
+     dofs), rbl_generalized(K, M, k = 8, b = 8, σ = 0, f64, tol 1e-6) with
+     AssembledMultigrid.from_grid(K, (42, 43, 43), dof=3).psolve as the
+     inner preconditioner, held to ‖K·x − λ·M·x‖ ≤ 1e-6·‖K‖ and
+     M-orthonormality; the same on fem_elasticity_3d(16) with from_grid and
+     with smoothed_aggregation, each within 1e-8 of scipy's factorized
+     eigsh(K, 8, M, sigma=0) on the host; the AMG set-up's host seconds,
+     each level's n, nonzeros and route, inner iterations a solve, B1/B2
+     launches.  Then both packed entry points against the plain version at
+     b = 8 on fem42 in f64 and on every AMG level routed to BSR, f32 and
+     f64, timed (the ``path_shapes`` of their kernel rows);
+ 18. rbl_svd(which="SM"): a seeded dense 20,000 × 2,000 f64 matrix with
+     singular values 1 + 9·√t over [1, 10] (k = 10) against
+     svds(which="SM") within 1e-8, and phase 15's sparse factor (k = 5)
+     held by ‖B·V − U·diag(s)‖ and ‖Bᵀ·U − V·diag(s)‖.
 
-Phases 11-14 launch B1/B2 through BlockSparseOperator.apply.  Phase 14's
-fem42 polish applies A to k + buffer + random columns at once (48 here),
-in f64 and in f32 filter chains, so after it both packed entry points
-are held against the plain version on fem42 at that width, f32 and f64,
-and timed.  In the kernels' record ``launches`` is the count of the path
-the row's times were taken on (phases 4-5 for B1/B2) and
-``launches_by_phase`` holds every path's own count; phases 11-13 must
-launch B1 and phase 14 both B1 (its f32 coarse sweep) and B2.  The last
-two lines are the kernels' JSON record and the JSON result.  Any
+Phases 11-14 and 17 launch B1/B2 through BlockSparseOperator.apply.
+Phase 14's fem42 polish applies A to k + buffer + random columns at once
+(48 here), in f64 and in f32 filter chains, so after it both packed entry
+points are held against the plain version on fem42 at that width, f32 and
+f64, and timed, beside torch.sparse CSR at 48 and 90 columns.  In the
+kernels' record ``launches`` is the count of the path the row's times were
+taken on (phases 4-5 for B1/B2) and ``launches_by_phase`` holds every
+path's own count; phases 11-13 and 17 must launch B1 and phase 14 both B1
+(its f32 coarse sweep) and B2.  The last two lines are the kernels' JSON
+record and the JSON result.  Any
 failure raises, and the script exits non-zero; it also exits non-zero,
 printing no result, when no CUDA device is available.
 """
@@ -559,7 +583,6 @@ def phase_polish(A, head, card: str):
 
 def phase_svd(card: str):
     """Phase 15."""
-    import scipy.sparse as sp
     import scipy.sparse.linalg as spla
     import torch
 
@@ -591,13 +614,8 @@ def phase_svd(card: str):
           f"|B·V − U·diag(s)| {back:.3e}, kryl_dim {res.kryl_dim}  [{card}]")
     del B
 
-    m, n, k, per_row = 200_000, 50_000, 10, 10
-    rng = np.random.default_rng(15)
-    cols = rng.integers(0, n, (m, per_row))
-    vals = rng.standard_normal((m, per_row)) / np.sqrt(1.0 + cols)
-    S = sp.csr_matrix((vals.ravel(), cols.ravel(),
-                       np.arange(0, m * per_row + 1, per_row)), shape=(m, n))
-    S.sum_duplicates()
+    m, n, k = 200_000, 50_000, 10
+    S = sparse_factor(m, n)
     t0 = time.perf_counter()
     ref = np.sort(spla.svds(S, k=k, return_singular_vectors=False))[::-1]
     svds_s = time.perf_counter() - t0
@@ -614,6 +632,293 @@ def phase_svd(card: str):
           f"{wall:.3f} s (svds {svds_s:.1f} s on the host), max rel err vs svds "
           f"{err:.3e}, max |B·V − U·diag(s)| {back:.3e} (σ₁ {ref[0]:.3f}), "
           f"kryl_dim {res.kryl_dim}  [{card}]")
+
+
+def laplacian_spectrum(nx: int) -> np.ndarray:
+    """Every eigenvalue of the nx² Dirichlet Laplacian, ascending."""
+    ev1 = 2 - 2 * np.cos(np.pi * np.arange(1, nx + 1) / (nx + 1))
+    return np.sort(np.add.outer(ev1, ev1).ravel())
+
+
+def interior_shift(lam: np.ndarray, k: int = 4) -> float:
+    """A shift between two eigenvalues near the middle of ``lam``, away from
+    both, whose k nearest eigenvalues are whole degenerate groups with the
+    (k+1)-th at least 1.2× farther than the k-th."""
+    u = np.unique(np.round(lam, 12))
+    for j in range(len(u) // 3, len(u) - 1):
+        sig = u[j] + 0.37 * (u[j + 1] - u[j])
+        d = np.sort(np.abs(lam - sig))
+        if d[k] > 1.2 * d[k - 1] and d[0] > 0.2 * (u[j + 1] - u[j]):
+            return float(sig)
+    raise AssertionError("no interior shift found")
+
+
+def phase_stencil_shift_invert(card: str, nx: int = 512, device: str = "cuda"):
+    """Phase 16: rbl on ShiftInvertOperator.shift(Laplacian2D(nx, nx), σ),
+    k = 4, b = 4, eigenvalues by Rayleigh quotients with A in f64 against
+    the analytic spectrum.  Returns {label: (wall, inner iterations an
+    apply)}."""
+    import torch
+
+    import rbl_tpu_torch as rt
+
+    lam = laplacian_spectrum(nx)
+    lap64 = rt.Laplacian2D(nx, nx, dtype=torch.float64, device=device)
+    sig_in = interior_shift(lam)
+    out = {}
+    for label, dtype, sigma, precond, tol_rel, gate in (
+            ("fdm f64", torch.float64, 0.0, "auto", 1e-11, 1e-9),
+            ("fdm f32", torch.float32, 0.0, "auto", 1e-5, 1e-4),
+            ("mg f64", torch.float64, 0.0, "mg", 1e-10, 1e-9),
+            ("fdm f64 interior", torch.float64, sig_in, "auto", 1e-11, 1e-9)):
+        lap = rt.Laplacian2D(nx, nx, dtype=dtype, device=device)
+        si = rt.ShiftInvertOperator.shift(lap, sigma, precond=precond)
+        theta_max = float(np.max(np.abs(1.0 / (lam - sigma))))
+        cfg = rt.RBLConfig(block_size=4, compute_dtype=dtype, basis_dtype=dtype,
+                           tol=tol_rel * theta_max, device=device)
+        t0 = time.perf_counter()
+        res = rt.rbl(si, 4, cfg=cfg)
+        if device == "cuda":
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        V = res.eigenvectors.to(torch.float64)
+        rq = ((V * lap64.apply(V)).sum(0) / (V * V).sum(0)).cpu().numpy()
+        want = np.sort(lam[np.argsort(np.abs(lam - sigma), kind="stable")[:4]])
+        err = float(np.max(np.abs(np.sort(rq) - want) / np.abs(want)))
+        if not (err < gate and np.all(np.isfinite(rq))):
+            raise AssertionError(f"shift-invert lap2d {nx}² {label} σ={sigma}: max rel "
+                                 f"err {err:.3e} ≥ {gate:g} against the analytic "
+                                 "spectrum")
+        per = si.counts["iterations"] / max(si.counts["applies"], 1)
+        out[label] = (wall, per)
+        print(f"shift-invert lap2d {nx}² {label} (precond {si.precond}) σ={sigma:.9g} "
+              f"k=4 b=4: wall {wall:.3f} s, {si.counts['applies']} applies, "
+              f"{per:.1f} inner MINRES iterations an apply, kryl_dim {res.kryl_dim}, "
+              f"converged {res.converged}, max rel err (Rayleigh quotients vs "
+              f"analytic) {err:.3e}  [{card}]")
+    return out
+
+
+def lumped_mass(nx: int) -> np.ndarray:
+    """The lumped (diagonal) mass of fem_elasticity_3d(nx): density 1, h = 1,
+    each hex's volume shared equally by its 8 nodes, the z = 0 face clamped
+    away, repeated over the 3 dofs of a node."""
+    ax = np.arange(nx + 1)
+    cells = np.where((ax > 0) & (ax < nx), 2.0, 1.0)  # hexes along an axis
+    node = cells[1:, None, None] * cells[None, :, None] * cells[None, None, :] / 8.0
+    return np.repeat(node.ravel(), 3)
+
+
+def vibration_solve(A, m, node_dims, build: str, label: str, card: str,
+                    device: str = "cuda"):
+    """rbl_generalized(K, M, k=8, b=8, σ=0) with an AssembledMultigrid inner
+    preconditioner, f64, tol 1e-6; K is the hierarchy's finest operator.
+    Returns (result, info, wall, set-up s, max residual, max |XᵀMX − I|,
+    the hierarchy)."""
+    import torch
+
+    import rbl_tpu_torch as rt
+    from rbl_tpu_torch.ops.spmm import bsr
+
+    t0 = time.perf_counter()
+    if build == "grid":
+        amg = rt.AssembledMultigrid.from_grid(A, node_dims, dof=3, device=device)
+    else:
+        amg = rt.AssembledMultigrid.smoothed_aggregation(A, dof=3, device=device)
+    setup_s = time.perf_counter() - t0
+    # K is the finest level's operator: as_operator(A, f64) on the device
+    opK = amg.levels[0].op if amg.levels else rt.as_operator(
+        A, dtype=torch.float64, device=device)
+    opM = rt.DiagonalOperator(torch.as_tensor(m, dtype=torch.float64, device=device))
+    b1, b2 = bsr.bsr_spmm_packed_resident.launches, bsr.bsr_spmm_packed.launches
+    t0 = time.perf_counter()
+    res, info = rt.rbl_generalized(
+        opK, opM, 8, 8, cfg=rt.RBLConfig(tol=1e-6, device=device), which="LM",
+        sigma=0.0, inner_psolve=amg.psolve, return_info=True)
+    if device == "cuda":
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    X = res.eigenvectors
+    lam = torch.as_tensor(res.eigenvalues, dtype=torch.float64, device=X.device)
+    R = opK.apply(X) - opM.apply(X) * lam[None, :]
+    resid = float(R.norm(dim=0).max())
+    orth = float((X.T @ opM.apply(X) - torch.eye(8, dtype=X.dtype, device=X.device)
+                  ).abs().max())
+    print(f"{label} vibration (AMG {build}, set-up {setup_s:.2f} s on the host; "
+          f"{amg.report()}; K route {type(opK).__name__}) k=8 b=8 f64 σ=0 tol 1e-6: "
+          f"wall {wall:.3f} s, {info.inner_solves} inner solves, "
+          f"{info.inner_iterations / max(info.inner_solves, 1):.1f} MINRES iterations "
+          f"a solve, kryl_dim {res.kryl_dim}, converged {res.converged}, "
+          f"λ {res.eigenvalues[0]:.6e}..{res.eigenvalues[-1]:.6e}, max "
+          f"‖K·x − λ·M·x‖ {resid:.3e}, max |XᵀMX − I| {orth:.3e}, launches B1 "
+          f"{bsr.bsr_spmm_packed_resident.launches - b1} B2 "
+          f"{bsr.bsr_spmm_packed.launches - b2}  [{card}]")
+    return res, info, wall, setup_s, resid, orth, amg
+
+
+def phase_vibration(A, norm: float, card: str, device: str = "cuda",
+                    small_nx: int = 16, large_nx: int = 42):
+    """Phase 17: the FEM vibration problem K·x = λ·M·x (lumped M) on
+    fem_elasticity_3d(large_nx) with the grid AMG, and on
+    fem_elasticity_3d(small_nx) with both AMG builds against scipy's
+    factorized eigsh(K, 8, M, sigma=0) on the host.  Returns fem42's f64
+    operator and its AMG hierarchy."""
+    import scipy.sparse as sp
+    import scipy.sparse.linalg as spla
+    import torch
+
+    import rbl_tpu_torch as rt
+    from rbl_tpu_torch.utils.fem import fem_elasticity_3d
+
+    m = lumped_mass(large_nx)
+    res, info, wall, setup_s, resid, orth, amg = vibration_solve(
+        A, m, (large_nx, large_nx + 1, large_nx + 1), "grid", f"fem{large_nx}", card,
+        device)
+    if not (res.converged and resid <= 1e-6 * norm and orth < 1e-8
+            and np.all(res.eigenvalues > 0)):
+        raise AssertionError(f"fem{large_nx} vibration: converged {res.converged}, "
+                             f"max residual {resid:.3e} (bound {1e-6 * norm:.3e}), "
+                             f"max |XᵀMX − I| {orth:.3e}")
+    A16 = fem_elasticity_3d(small_nx)
+    m16 = lumped_mass(small_nx)
+    t0 = time.perf_counter()
+    ref = np.sort(spla.eigsh(A16, 8, M=sp.diags(m16), sigma=0.0, which="LM",
+                             return_eigenvectors=False))
+    eigsh_s = time.perf_counter() - t0
+    for build in ("grid", "sa"):
+        r16, _, _, _, _, _, _ = vibration_solve(
+            A16, m16, (small_nx, small_nx + 1, small_nx + 1), build, f"fem{small_nx}",
+            card, device)
+        err = float(np.max(np.abs(np.sort(r16.eigenvalues) - ref) / ref))
+        if not err < 1e-8:
+            raise AssertionError(f"fem{small_nx} vibration ({build}): max rel err "
+                                 f"{err:.3e} ≥ 1e-8 against scipy's eigsh")
+        print(f"fem{small_nx} vibration ({build}): max rel err against scipy's "
+              f"factorized eigsh(K, 8, M, sigma=0) {err:.3e} (eigsh {eigsh_s:.2f} s on "
+              f"the host)")
+    return amg.levels[0].op if amg.levels else None, amg
+
+
+def phase_svd_sm(card: str, device: str = "cuda", m: int = 20_000, n: int = 2_000,
+                 sparse_shape=(200_000, 50_000)):
+    """Phase 18: rbl_svd(which="SM") of a seeded dense m × n f64 matrix with
+    singular values 1 + 9·√t spread over [1, 10] (k = 10) against scipy's
+    svds(which="SM"), and of phase 15's sparse factor (k = 5) held by
+    ‖B·V − U·diag(s)‖ and ‖Bᵀ·U − V·diag(s)‖."""
+    import scipy.sparse.linalg as spla
+    import torch
+
+    import rbl_tpu_torch as rt
+
+    g = torch.Generator(device=device).manual_seed(18)
+    k = 10
+    Q1, _ = torch.linalg.qr(torch.randn((m, n), generator=g, dtype=torch.float64,
+                                        device=device))
+    Q2, _ = torch.linalg.qr(torch.randn((n, n), generator=g, dtype=torch.float64,
+                                        device=device))
+    # σ = 1 + 9·√t over t ∈ [0, 1]: the small end sparser than a linear
+    # spread, so scipy's ARPACK reaches it in seconds
+    s_true = 1.0 + 9.0 * torch.sqrt(torch.linspace(1.0, 0.0, n, dtype=torch.float64,
+                                                    device=device))
+    B = (Q1 * s_true) @ Q2.T
+    del Q1, Q2
+    t0 = time.perf_counter()
+    ref = np.sort(spla.svds(B.cpu().numpy(), k=k, which="SM",
+                            return_singular_vectors=False))
+    svds_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    res = rt.rbl_svd(B, k, 8, cfg=rt.RBLConfig(tol=1e-10, device=device), which="SM")
+    if device == "cuda":
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    err = rel_diff(np.sort(res.s), ref)
+    exact = rel_diff(np.sort(res.s), np.sort(s_true.cpu().numpy())[:k])
+    st = torch.as_tensor(res.s, device=B.device)
+    back = max(float((B @ res.V - res.U * st).abs().max()),
+               float((B.T @ res.U - res.V * st).abs().max()))
+    if not (res.converged and err < 1e-8 and back < 1e-8):
+        raise AssertionError(f"rbl_svd SM dense: converged {res.converged}, max rel err "
+                             f"vs svds {err:.3e}, max residual {back:.3e}")
+    print(f"rbl_svd SM dense {m}×{n} f64 k={k} b=8 (σ = 1 + 9√t over [1, 10]): wall {wall:.3f} s "
+          f"(svds SM {svds_s:.1f} s on the host), max rel err vs svds {err:.3e}, vs "
+          f"the constructed σ {exact:.3e}, max |B·V − U·s|, |Bᵀ·U − V·s| {back:.3e}, "
+          f"kryl_dim {res.kryl_dim}  [{card}]")
+    del B
+
+    mm, nn = sparse_shape
+    S = sparse_factor(mm, nn)
+    k = 5
+    # θ = 1/σ² of the σ = 0 transform is at least 1/min‖B·e_j‖²: a tolerance
+    # 1e-8 relative to that
+    cmin = float(np.sqrt(np.min(np.asarray(S.multiply(S).sum(axis=0)))))
+    t0 = time.perf_counter()
+    res = rt.rbl_svd(S, k, 8, cfg=rt.RBLConfig(tol=1e-8 / cmin ** 2, device=device),
+                     which="SM")
+    if device == "cuda":
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    U, V = res.U.cpu().numpy(), res.V.cpu().numpy()
+    r1 = float(np.abs(S @ V - U * res.s).max())
+    r2 = float(np.abs(S.T @ U - V * res.s).max())
+    if not (res.converged and max(r1, r2) < 1e-6 * res.s.min() and np.all(res.s > 0)):
+        raise AssertionError(f"rbl_svd SM sparse: converged {res.converged}, residuals "
+                             f"{r1:.3e}, {r2:.3e}, s {res.s}")
+    print(f"rbl_svd SM sparse {mm}×{nn}, {S.nnz} nonzeros, f64 k={k} b=8: wall "
+          f"{wall:.3f} s, s {np.array2string(res.s, precision=6)}, max "
+          f"|B·V − U·s| {r1:.3e}, |Bᵀ·U − V·s| {r2:.3e}, kryl_dim {res.kryl_dim}  "
+          f"[{card}]")
+
+
+def sparse_factor(m: int = 200_000, n: int = 50_000, per_row: int = 10):
+    """Phase 15's seeded sparse factor: ``per_row`` nonzeros a row, column
+    scales decaying as 1/√(1 + j)."""
+    import scipy.sparse as sp
+
+    rng = np.random.default_rng(15)
+    cols = rng.integers(0, n, (m, per_row))
+    vals = rng.standard_normal((m, per_row)) / np.sqrt(1.0 + cols)
+    S = sp.csr_matrix((vals.ravel(), cols.ravel(),
+                       np.arange(0, m * per_row + 1, per_row)), shape=(m, n))
+    S.sum_duplicates()
+    return S
+
+
+def check_path_shapes(opK, amg, kernels: dict, card: str):
+    """After phase 17: both packed entry points against the plain version,
+    timed, at b = 8 on every AMG level that ``as_operator`` routed to BSR,
+    f32 and f64 (level 0 is fem42's K, in the f64 of the solve); each row
+    is added to ``kernels[entry]["path_shapes"]``."""
+    import torch
+
+    from rbl_tpu_torch.ops.spmm import bsr
+    from rbl_tpu_torch.ops.spmm.operator import cast_operator
+
+    if not isinstance(opK, bsr.BlockSparseOperator):
+        raise AssertionError(f"fem42 f64 took the {type(opK).__name__} route, not BSR")
+    for i, lv in enumerate(amg.levels):
+        if not isinstance(lv.op, bsr.BlockSparseOperator):
+            continue
+        label = "fem42 K = AMG level 0" if i == 0 else f"AMG level {i}"
+        for dtype in ((torch.float64,) if i == 0 else (torch.float32, torch.float64)):
+            op = lv.op if lv.op.dtype == dtype else cast_operator(lv.op, dtype)
+            ncb = -(-op._n // op.bk)
+            used = ("bsr_spmm_packed_resident"
+                    if ncb * op.bk * 8 * dtype.itemsize <= bsr._RESIDENT_X_BYTES
+                    else "bsr_spmm_packed")
+            for entry in ("bsr_spmm_packed_resident", "bsr_spmm_packed"):
+                abs_err, rel, ms, plain_ms, moved, ops = compare_entry(
+                    entry, op, 8, seed=17, timing=True)
+                lim = bound(moved, ops)
+                kernels[entry].setdefault("path_shapes", []).append(dict(
+                    phase=17, shape=f"{label} n={op._n} plan ({op.bm}, {op.unroll}) "
+                    f"{str(dtype)[6:]} b=8", dispatched=entry == used,
+                    max_abs_err=abs_err, ms=ms, plain_ms=plain_ms, **lim))
+                tag = " (the path's entry)" if entry == used else ""
+                print(f"{entry} {label} (n={op._n}, plan ({op.bm}, {op.unroll}), "
+                      f"{op.nnz_blocks} tiles) b=8 {dtype}{tag}: "
+                      f"rel err {rel:.2e}, kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+                      f"bound {lim['bound_ms']:.4f} ms ({lim['bound_ms'] / ms:.0%})  "
+                      f"[{card}]")
 
 
 def main() -> int:
@@ -749,6 +1054,17 @@ def main() -> int:
                   f"err {rel:.2e}, kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
                   f"bound {bound(moved, ops)['bound_ms']:.4f} ms  [{card}]")
     del op64
+    # the library's time for the same product at the filter chains' widths
+    for dtype in (torch.float32, torch.float64):
+        csr = torch_csr(A, dtype)
+        for cols in (width, 90):
+            g = torch.Generator(device="cuda").manual_seed(cols)
+            Xl = torch.randn((A.shape[0], cols), generator=g, dtype=dtype,
+                             device="cuda")
+            lib_ms = time_ms(lambda: torch.sparse.mm(csr, Xl))
+            kernels["bsr_spmm_packed"][f"library_ms_b{cols}_{str(dtype)[6:]}"] = lib_ms
+            print(f"torch.sparse CSR fem42 b={cols} {dtype}: {lib_ms:.4f} ms  [{card}]")
+        del csr, Xl
 
     # --- 6. blocked-ELL (B3) and panel (B4) against their plain versions --
     t6 = time.perf_counter()
@@ -1040,6 +1356,22 @@ def main() -> int:
     t15 = time.perf_counter()
     phase_svd(card)
     print(f"phase 15: {time.perf_counter() - t15:.1f} s")
+
+    # --- 16. shift-invert on the 512² stencil (no kernel of the table) -----
+    t16 = time.perf_counter()
+    phase_stencil_shift_invert(card)
+    print(f"phase 16: {time.perf_counter() - t16:.1f} s")
+
+    # --- 17. the FEM vibration solve, then B1/B2 at its shapes --------------
+    opK, amg = long_phase(17, (B1,), phase_vibration, A, float(head[0]), card)
+    check_path_shapes(opK, amg, kernels, card)
+    del opK, amg
+    torch.cuda.empty_cache()
+
+    # --- 18. the smallest singular triplets ---------------------------------
+    t18 = time.perf_counter()
+    phase_svd_sm(card)
+    print(f"phase 18: {time.perf_counter() - t18:.1f} s")
     print(f"chip_smoke total: {time.perf_counter() - t_start:.1f} s")
 
     record = {"kernels": [

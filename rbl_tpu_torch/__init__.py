@@ -17,6 +17,19 @@ Public surface:
                            — f32 discovery, f64 Chebyshev-filtered polish
   rbl_filtered             — Chebyshev-filtered sweep for LA / SA
   rbl_svd                  — truncated SVD on a matrix-free Gram operator
+                             (which="LM" or "SM")
+  rbl_generalized / PencilInfo
+                           — pencils A·x = λ·M·x: Chebyshev M^(-1/2)
+                             transform, shift-invert modes normal /
+                             buckling / cayley
+  ShiftInvertOperator / block_minres
+                           — (A − σI)⁻¹ by blocked MINRES, the exact FDM
+                             solve or a multigrid-preconditioned one
+  AssembledMultigrid / block_jacobi_psolve / rigid_body_modes
+                           — preconditioners for assembled SPD matrices
+  ChebyshevSeriesOperator / PencilOperator /
+  GeneralizedShiftInvertOperator
+                           — the pencil transforms as operators
   RBLConfig                — every knob the reference hardcodes, the
                              pinned-host basis tier and the sweep
                              checkpoint among them
@@ -32,6 +45,13 @@ Public surface:
 """
 
 from .config import RBLConfig
+from .ops.amg import AssembledMultigrid, block_jacobi_psolve, rigid_body_modes
+from .ops.generalized import (
+    ChebyshevSeriesOperator,
+    GeneralizedShiftInvertOperator,
+    PencilOperator,
+)
+from .ops.minres import ShiftInvertOperator, block_minres
 from .ops.spmm.bsr import BlockSparseOperator
 from .ops.spmm.coo import CooOperator, HybOperator
 from .ops.spmm.dia import DiaOperator
@@ -50,6 +70,7 @@ from .ops.spmm.operator import (
     as_operator,
 )
 from .solver.filtered import FilterInfo, rbl_filtered
+from .solver.generalized import PencilInfo, rbl_generalized
 from .solver.lanczos import LanczosResult, SweepAborted
 from .solver.polish import chebyshev_refine, rbl_polished
 from .solver.rbl import RBL, RBL_gpu, rbl
@@ -70,6 +91,16 @@ __all__ = [
     "FilterInfo",
     "rbl_svd",
     "SVDResult",
+    "rbl_generalized",
+    "PencilInfo",
+    "ShiftInvertOperator",
+    "block_minres",
+    "AssembledMultigrid",
+    "block_jacobi_psolve",
+    "rigid_body_modes",
+    "ChebyshevSeriesOperator",
+    "GeneralizedShiftInvertOperator",
+    "PencilOperator",
     "SweepAborted",
     "as_operator",
     "LinearOperator",

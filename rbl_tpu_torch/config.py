@@ -102,11 +102,12 @@ class RBLConfig:
     fault_inject_abort_after_chunks:
         Raise ``SweepAborted`` after this many processed chunks:
         deterministic preemption for testing checkpoint and resume.
-    restart_kryl_dim / restart_growth / restart_reorth_cadence:
-        The restarted variant's initial sweep length (restarted.jl:103),
-        its growth per restart (restarted.jl:142) and the reference's
-        deflation cadence (restarted.jl:53; carried for parity: the port,
-        like the JAX package, deflates every step).
+    restart_kryl_dim / restart_growth:
+        The restarted variant's initial sweep length (restarted.jl:103)
+        and its growth per restart (restarted.jl:142).  The reference's
+        deflation cadence (restarted.jl:53) has no field: the port, like
+        the JAX package, deflates every step, and ``utils.convert`` drops
+        the JAX package's ``restart_reorth_cadence``.
     restart_growth_policy:
         "stall" (default) grows the sweep only after a restart that locked
         nothing, or after two low-yield restarts; "always" restores the
@@ -136,7 +137,6 @@ class RBLConfig:
     fault_inject_abort_after_chunks: Optional[int] = None
     restart_kryl_dim: int = 100
     restart_growth: int = 10
-    restart_reorth_cadence: int = 3
     restart_growth_policy: str = "stall"
 
     def __post_init__(self):
@@ -149,7 +149,7 @@ class RBLConfig:
                 f"max_kryl_dim={self.max_kryl_dim} < block_size={self.block_size}"
             )
         for name in ("partial_reorth_cadence", "eig_poll_cadence",
-                     "loc_reorth_passes", "restart_reorth_cadence",
+                     "loc_reorth_passes",
                      "chunk_growth_cap", "pipeline_depth",
                      "adaptive_reorth_max", "sweep_checkpoint_every"):
             if getattr(self, name) < 1:

@@ -437,9 +437,6 @@ def rbl_polished(
     target_gain: float = 1e6,
     timer=None,
     checkpoint_path: Optional[str] = None,
-    # legacy restarted-polish knobs, still honored by the cold fallback
-    polish_kryl_dim: Optional[int] = None,
-    max_restarts: Optional[int] = None,
 ) -> LanczosResult:
     """Two-stage solve: f32 subspace discovery, f64 Chebyshev-filtered
     subspace polish (module docstring).
@@ -456,7 +453,9 @@ def rbl_polished(
     Returns the polish stage's ``LanczosResult``; ``iterations`` counts
     filter passes.  If the coarse stage finds nothing usable
     (pathological), the solve falls back to a cold f64 ``rbl_restarted``
-    — identical to the plain restarted solver.
+    — identical to the plain restarted solver — whose sweeps start at
+    ``cfg.restart_kryl_dim`` columns, at least max(8b, 2k) rounded up to
+    b, under a budget of 4·⌈k/b⌉ + 16 restarts.
 
     ``checkpoint_path`` is honored on BOTH paths: the warm polish writes
     an atomic filter-pass-boundary checkpoint and removes it on success,
@@ -489,16 +488,13 @@ def rbl_polished(
     if warm_V is None:
         # cold fallback: the restarted polish path (no warm subspace to
         # filter — grow one the Krylov way)
-        if polish_kryl_dim is None:
-            polish_kryl_dim = max(8 * b, 2 * k)
-            polish_kryl_dim += (-polish_kryl_dim) % b
-        if max_restarts is None:
-            max_restarts = 4 * (k + b - 1) // b + 16
+        kryl = max(cfg.restart_kryl_dim, 8 * b, 2 * k)
+        kryl += (-kryl) % b
         from .restarted import rbl_restarted
 
         return rbl_restarted(
-            op, k, cfg=cfg.replace(restart_kryl_dim=polish_kryl_dim), b=b,
-            max_restarts=max_restarts, timer=timer,
+            op, k, cfg=cfg.replace(restart_kryl_dim=kryl), b=b,
+            max_restarts=4 * (k + b - 1) // b + 16, timer=timer,
             checkpoint_path=checkpoint_path, which=which,
         )
 

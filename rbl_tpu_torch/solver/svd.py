@@ -22,8 +22,9 @@ Gram matrix SQUARES the spectrum, so σ smaller than ~√eps·σ₁ fall below t
 compute dtype's resolvable range — run f64 for wide spectra, exactly as
 images.jl does (it keeps Float64 throughout).
 
-``which="SM"`` (the smallest singular triplets) needs the shift-invert
-operator, which is not ported yet (ROADMAP.md A.7), and raises.
+``which="SM"`` returns the smallest singular triplets through the σ = 0
+shift-invert transform of the Gram operator (ops/minres.py): blocked
+MINRES inside, never factoring B.
 """
 
 from __future__ import annotations
@@ -93,18 +94,21 @@ def rbl_svd(
     ``v0`` (scipy ``svds`` convention) seeds the first column of the
     sampling block on the Gram side: length ``min(m, n)``.
 
-    ``which="SM"`` (the k smallest triplets, through σ = 0 shift-invert in
-    the JAX package) raises NotImplementedError: it waits for the
-    shift-invert operator.
+    ``which="SM"`` returns the k SMALLEST singular triplets (scipy's
+    ``svds(which="SM")``) via σ = 0 shift-invert on the Gram operator —
+    blocked MINRES inside (Jacobi-preconditioned through the Gram
+    operator's diagonal), never factoring B.  Singular values are
+    recovered as the cross-product column norms σ = ‖B·w‖ (exact for exact
+    singular vectors, first-order accurate in the Ritz error — more robust
+    than √λ followed by a division at the small end of the spectrum).  The
+    normal-equations resolvability floor √(eps·dim)·σ₁ still applies:
+    smaller σ are reported as 0 (run f64 to push the floor down).  A
+    rank-deficient B makes the Gram singular at σ = 0 and the inner solve
+    stalls, as ARPACK's shift-invert does on a singular pencil.
     """
     which = which.upper()
     if which not in ("LM", "SM"):
         raise ValueError(f"which={which!r} not in ('LM', 'SM')")
-    if which == "SM":
-        raise NotImplementedError(
-            'rbl_svd(which="SM") needs the shift-invert operator, which is '
-            "not ported yet (ROADMAP.md A.7)"
-        )
     cfg = cfg or RBLConfig()
     cdt = cfg.compute_dtype
     if hasattr(B, "tocsr"):
@@ -114,8 +118,9 @@ def rbl_svd(
         left = m < n  # solve the smaller Gram side
         op = SparseGramOperator.from_scipy(B, dtype=cdt, left=left,
                                            device=cfg.device)
-        res = rbl(op, k, b, cfg=cfg, compute_eigenvectors=True, timer=timer,
-                  v0=v0)
+        res = _solve_gram(op, k, b, cfg, timer, v0, which)
+        if which == "SM":
+            return _assemble_svd_sm(res, cfg, m, n, left, op=op)
         return _assemble_svd(res, k, cfg, m, n, left, op=op)
     if isinstance(B, torch.Tensor):
         Bd = B.to(cdt) if cfg.device is None else B.to(
@@ -130,9 +135,58 @@ def rbl_svd(
         raise ValueError(f"k={k} out of range for shape {tuple(Bd.shape)}")
     left = m < n  # solve the smaller Gram side
     op = GramOperator(B=Bd, left=left)
-    res = rbl(op, k, b, cfg=cfg, compute_eigenvectors=True, timer=timer,
-              v0=v0)
+    res = _solve_gram(op, k, b, cfg, timer, v0, which)
+    if which == "SM":
+        return _assemble_svd_sm(res, cfg, m, n, left, Bd=Bd)
     return _assemble_svd(res, k, cfg, m, n, left, Bd=Bd)
+
+
+def _solve_gram(op, k, b, cfg, timer, v0, which):
+    """Run the block Lanczos on the Gram-side operator: LM directly, SM
+    through the σ = 0 blocked-MINRES shift-invert transform (the Gram is
+    SPD, so the inner MINRES is a definite solve)."""
+    if which == "SM":
+        from ..ops.minres import ShiftInvertOperator, default_inner_tol
+
+        op = ShiftInvertOperator.shift(
+            op, 0.0, inner_tol=default_inner_tol(op.dtype, cfg.tol)
+        )
+    return rbl(op, k, b, cfg=cfg, compute_eigenvectors=True, timer=timer,
+               v0=v0)
+
+
+def _assemble_svd_sm(res, cfg, m, n, left, op=None, Bd=None):
+    """SM-end assembly: σ from cross-product column norms ‖B·w‖ (never a
+    division by a tiny Ritz-derived σ), with the same normal-equations
+    floor as the LM path — σ₁ for the floor comes from a power-method
+    bound on the Gram operator since the solve only saw the small end."""
+    from ..ops.eig import spectral_norm_bound
+
+    W = res.eigenvectors  # (gram-side, k) orthonormal
+    if Bd is not None:
+        M = Bd.T if left else Bd
+        X = dot(M, W.to(M.dtype), _pet(W.dtype))
+        gop = GramOperator(B=Bd, left=left)
+    else:
+        cross = op.Bt if left else op.Bf
+        X = cross.apply(W.to(cross.dtype))
+        gop = op
+    s = torch.linalg.norm(X.to(torch.float64), dim=0).cpu().numpy()
+    gen = torch.Generator(device=gop.device)
+    gen.manual_seed(cfg.seed + 2)
+    sigma1 = float(np.sqrt(max(spectral_norm_bound(gop, gen), 0.0)))
+    eps = float(torch.finfo(cfg.compute_dtype).eps)
+    floor = float(np.sqrt(eps * max(m, n))
+                  * max(sigma1, np.finfo(np.float64).tiny))
+    st = torch.as_tensor(s, dtype=X.dtype, device=X.device)
+    X = _guarded_divide(X, st, floor)
+    s = np.where(s > floor, s, 0.0)
+    order = np.argsort(-s, kind="stable")  # SVDResult contract: descending
+    idx = torch.as_tensor(order, device=W.device)
+    s, X, W = s[order], X[:, idx], W[:, idx]
+    U, V = (W, X) if left else (X, W)
+    return SVDResult(U=U, s=s, V=V, iterations=res.iterations,
+                     kryl_dim=res.kryl_dim, converged=res.converged)
 
 
 def _assemble_svd(res, k, cfg, m, n, left, op=None, Bd=None):

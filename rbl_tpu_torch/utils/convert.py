@@ -29,6 +29,9 @@ from ..ops.spmm.operator import (
 _TPU_ONLY_FIELDS = frozenset({
     "chunk_growth_cap_f64", "fault_retries", "min_basis_cols",
 })
+# Fields that the JAX package validates but nothing of it reads (both
+# packages deflate the restarted sweep every step): dropped.
+_UNREAD_FIELDS = frozenset({"restart_reorth_cadence"})
 # Fields of features not ported yet (the mesh of ``parallel/``), with the JAX
 # package's defaults: a config that leaves them at the default converts,
 # any other raises.
@@ -53,11 +56,12 @@ def torch_dtype(dt) -> torch.dtype:
 def config_from_fields(fields: dict) -> RBLConfig:
     """An RBLConfig from the fields of the JAX package's RBLConfig (e.g.
     ``dataclasses.asdict(cfg)``), the checkpoint, fault-injection and
-    restart knobs included.  Drops the TPU-only fields; raises
-    NotImplementedError for a feature the port does not have yet."""
+    restart knobs included.  Drops the TPU-only fields and the ones nothing
+    reads; raises NotImplementedError for a feature the port does not have
+    yet."""
     kw = {}
     for name, value in fields.items():
-        if name in _TPU_ONLY_FIELDS:
+        if name in _TPU_ONLY_FIELDS or name in _UNREAD_FIELDS:
             continue
         if name in _NOT_PORTED_DEFAULTS:
             if value != _NOT_PORTED_DEFAULTS[name]:
@@ -153,3 +157,56 @@ def operator_from_arrays(kind: str, arrays: dict[str, np.ndarray],
             left=bool(static.get("left", False)),
         )
     raise ValueError(f"unknown operator kind {kind!r}")
+
+
+def amg_from_arrays(levels: list, transfers: list, coarse_inv: np.ndarray,
+                    nu: int, dtype=torch.float64, device=None):
+    """The port's ``AssembledMultigrid`` holding the JAX hierarchy's arrays.
+
+    levels: one dict a level: "kind", "arrays", "static" (its operator, as
+    ``operator_from_arrays`` takes it), "Winv" (n_nodes, dof, dof).
+    transfers: one dict a level: {"type": "agg", "Qpad", "perm", "posinv",
+    "dinv", "w", "nc"} (the smoothing term applies that level's operator),
+    {"type": "grid", "fine_dims", "coarse_dims", "P1s", "dof"} or
+    {"type": "coo", "P"} (P as a scipy matrix).  coarse_inv: the dense
+    coarsest inverse; nu: the smoothing sweeps."""
+    from ..ops.amg import (
+        AssembledMultigrid,
+        _AggTransfer,
+        _AMGLevel,
+        _CooTransfer,
+        _GridTransfer,
+    )
+
+    dev = resolve_device(device)
+    lv = []
+    for spec in levels:
+        op = operator_from_arrays(spec["kind"], spec["arrays"],
+                                  spec.get("static", {}), dev)
+        Winv = np.asarray(spec["Winv"])
+        lv.append(_AMGLevel(None, Winv.shape[1], 0.0, dtype, dev, op=op,
+                            Winv=Winv))
+    tr = []
+    for level, spec in zip(lv, transfers):
+        kind = spec["type"]
+        if kind == "agg":
+            tr.append(_AggTransfer(
+                (spec["Qpad"], spec["perm"], spec["posinv"]), level.op,
+                spec["dinv"], spec["w"], spec["nc"], dtype, dev))
+        elif kind == "grid":
+            tr.append(_GridTransfer(spec["fine_dims"], spec["coarse_dims"],
+                                    spec["P1s"], spec["dof"]))
+        elif kind == "coo":
+            tr.append(_CooTransfer(spec["P"], dtype, dev))
+        else:
+            raise ValueError(f"unknown transfer type {kind!r}")
+    return AssembledMultigrid(lv, tr, np.asarray(coarse_inv), int(nu), dtype,
+                              dev)
+
+
+def series_from_arrays(base, coeffs: np.ndarray, lo: float, hi: float):
+    """The port's ``ChebyshevSeriesOperator`` on ``base`` (a port operator)
+    with the JAX series' coefficients and domain [lo, hi]."""
+    from ..ops.generalized import ChebyshevSeriesOperator
+
+    return ChebyshevSeriesOperator.from_coeffs(base, coeffs, lo, hi)

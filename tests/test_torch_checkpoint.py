@@ -222,9 +222,11 @@ def test_config_from_fields_carries_the_checkpoint_and_restart_knobs():
     tcfg = config_from_fields(dataclasses.asdict(jcfg))
     for name in ("sweep_checkpoint_path", "sweep_checkpoint_every",
                  "fault_inject_abort_after_chunks", "restart_kryl_dim",
-                 "restart_growth", "restart_reorth_cadence",
-                 "restart_growth_policy", "basis_device_cap_cols"):
+                 "restart_growth", "restart_growth_policy",
+                 "basis_device_cap_cols"):
         assert getattr(tcfg, name) == getattr(jcfg, name)
+    # the deflation cadence nothing reads is dropped, not carried
+    assert not hasattr(tcfg, "restart_reorth_cadence")
     assert tcfg.basis_dtype == torch.float64
     with pytest.raises(NotImplementedError):
         config_from_fields(dict(rows_axis="cols"))

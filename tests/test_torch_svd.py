@@ -1,7 +1,9 @@
 """The Gram-side operators and ``rbl_svd`` of the port on the CPU: operator
 applies against the JAX package's on the same seeded block (1e-13
 relative, f64), solves against ``numpy.linalg.svd`` (singular values 1e-10
-relative; vectors only through ‖B·V − U·diag(s)‖).
+relative; vectors only through ‖B·V − U·diag(s)‖).  ``which="SM"``: the
+smallest triplets through σ = 0 shift-invert, against numpy and the JAX
+package (tests/test_svd.py's SM cases).
 """
 
 import numpy as np
@@ -158,14 +160,53 @@ def test_svd_clamps_the_null_space_and_checks_arguments():
     np.testing.assert_allclose(res.s[:3], s[:3], rtol=1e-9)
     assert np.all(res.s[3:] == 0.0) and np.all(np.diff(res.s) <= 0)
     assert not res.U.numpy()[:, 3:].any()
-    with pytest.raises(NotImplementedError, match="A.7"):
-        rtt.rbl_svd(B, 2, which="SM")
     with pytest.raises(ValueError, match="which"):
         rtt.rbl_svd(B, 2, which="LA")
     with pytest.raises(ValueError, match="out of range"):
         rtt.rbl_svd(B, 41, cfg=rtt.RBLConfig(device=CPU))
     with pytest.raises(ValueError, match="2-D"):
         rtt.rbl_svd(np.ones(5), 1, cfg=rtt.RBLConfig(device=CPU))
+
+
+def _spread(m, n, seed=4):
+    """A dense factor with singular values spread over [1, 10]."""
+    rng = np.random.default_rng(seed)
+    r = min(m, n)
+    U, _ = np.linalg.qr(rng.standard_normal((m, r)))
+    V, _ = np.linalg.qr(rng.standard_normal((n, r)))
+    s = np.linspace(10.0, 1.0, r)
+    return (U * s) @ V.T, s
+
+
+@pytest.mark.parametrize("shape", [(90, 60), (60, 90)], ids=["tall", "wide"])
+def test_svd_smallest_which_sm(shape):
+    B, s_true = _spread(*shape)
+    k = 5
+    res = rtt.rbl_svd(B, k, 4, cfg=rtt.RBLConfig(device=CPU), which="SM")
+    jres = rbl_tpu.rbl_svd(B, k, b=4, which="SM")
+    s_small = np.sort(s_true)[:k]
+    np.testing.assert_allclose(np.sort(res.s), s_small, rtol=1e-8)
+    np.testing.assert_allclose(np.sort(res.s), np.sort(jres.s), rtol=1e-8)
+    assert np.all(np.diff(res.s) <= 0)  # descending, as the LM path
+    U, s, V = res.U.numpy(), res.s, res.V.numpy()
+    assert U.shape == (shape[0], k) and V.shape == (shape[1], k)
+    assert np.abs(U.T @ U - np.eye(k)).max() < 1e-8
+    assert np.abs(V.T @ V - np.eye(k)).max() < 1e-8
+    r1 = np.linalg.norm(B @ V - U * s[None, :], axis=0)
+    r2 = np.linalg.norm(B.T @ U - V * s[None, :], axis=0)
+    assert max(r1.max(), r2.max()) < 1e-6 * s_true[0]
+
+
+def test_svd_sm_sparse_factor():
+    """The SM path on a sparse factor keeps B sparse (SparseGramOperator +
+    Jacobi-preconditioned inner MINRES through its diagonal)."""
+    rng = np.random.default_rng(13)
+    B = (sp.random(80, 80, density=0.1, random_state=rng) + 3.0 * sp.eye(80)).tocsr()
+    res = rtt.rbl_svd(B, 4, 4, cfg=rtt.RBLConfig(device=CPU), which="sm")
+    s_true = np.sort(np.linalg.svd(B.toarray(), compute_uv=False))[:4]
+    np.testing.assert_allclose(np.sort(res.s), s_true, rtol=1e-7)
+    U, V = res.U.numpy(), res.V.numpy()
+    assert np.abs(B @ V - U * res.s).max() < 1e-6 * s_true[-1]
 
 
 def test_function_operator_solves_matrix_free():

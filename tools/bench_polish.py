@@ -32,7 +32,12 @@ the host's clock, ending in a device synchronisation; the two roomy rows
 run once (seed 1), after the others have warmed the card.  Each row carries its
 max relative eigenvalue error against the analytic spectrum (over the pairs
 it returned), its worst residual, its converged flag and the pairs it
-returned.  Prints the card's name and power limit and one JSON object;
+returned.  The ``rbl_restarted`` rows also name what the lock got wrong:
+``missing`` lists the analytic values of the top ``pairs`` that no locked
+value matches (1e-6 relative) — a pair skipped while one below it was
+locked — and ``foreign`` the locked values that match no eigenvalue of A
+at all.  The lock can take both, in the port as in the JAX package (it
+takes each sweep's converged prefix).  Prints the card's name and power limit and one JSON object;
 ``--device cpu`` runs the same at whatever ``--nx`` the host can bear (a
 smoke run: its times are no device metric).
 """
@@ -52,9 +57,22 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
 
-def analytic_top(nx: int, k: int) -> np.ndarray:
+def analytic_spectrum(nx: int) -> np.ndarray:
+    """Every eigenvalue of the nx² Dirichlet Laplacian, descending."""
     ev1 = 2 - 2 * np.cos(np.pi * np.arange(1, nx + 1) / (nx + 1))
-    return np.sort(np.add.outer(ev1, ev1).ravel())[::-1][:k]
+    return np.sort(np.add.outer(ev1, ev1).ravel())[::-1]
+
+
+def unmatched(values: np.ndarray, reference: np.ndarray, rtol: float = 1e-6):
+    """The entries of ``values`` within ``rtol`` (relative) of no entry of
+    ``reference``."""
+    ref = np.sort(reference)
+    out = []
+    for v in values:
+        i = np.clip(np.searchsorted(ref, v), 1, len(ref) - 1)
+        if min(abs(ref[i] - v), abs(ref[i - 1] - v)) > rtol * abs(v):
+            out.append(float(v))
+    return out
 
 
 def main() -> int:
@@ -87,7 +105,8 @@ def main() -> int:
             capture_output=True, text=True, check=True).stdout.strip()
     print(f"card: {card}")
     k, nx = args.k, args.nx
-    lam = analytic_top(nx, k)
+    spectrum = analytic_spectrum(nx)
+    lam = spectrum[:k]
     op = rt.Laplacian2D(nx, nx, dtype=torch.float64, device=dev)
     base = rt.RBLConfig(tol=args.tol, qr_method="cholqr2", eig_poll_cadence=16,
                         max_kryl_dim=args.cap)
@@ -133,11 +152,14 @@ def main() -> int:
                    pairs=got, max_rel_err=err,
                    worst_residual=None if rb is None else float(np.max(rb)),
                    iterations=int(res.iterations), kryl_dim=int(res.kryl_dim))
+        if name.startswith("rbl_restarted"):
+            row.update(missing=unmatched(lam[:got], w), foreign=unmatched(w, spectrum))
         rows.append(row)
         print(f"{name}: {wall:.3f} s, converged {row['converged']}, {got}/{k} "
               f"pairs, max rel err {err}, worst residual {row['worst_residual']}, "
-              f"iterations {row['iterations']}, kryl_dim {row['kryl_dim']}  [{card}]",
-              flush=True)
+              f"iterations {row['iterations']}, kryl_dim {row['kryl_dim']}"
+              + (f", missing {row['missing']}, foreign {row['foreign']}"
+                 if "missing" in row else "") + f"  [{card}]", flush=True)
     record = dict(card=card, nx=nx, k=k, tol=args.tol, cap=args.cap,
                   restart_kryl=args.restart_kryl, max_restarts=args.max_restarts,
                   big_cap=args.big_cap, long_restart_kryl=args.long_restart_kryl,

@@ -3,7 +3,7 @@
 card over block widths, beside the bare tile stream and torch.sparse CSR.
 
     python3 tools/bench_spmm.py [--widths 4,8,16,32] [--plan 64:4] [--ell]
-                                [--plans R:stages,...] [--root DIR]
+                                [--plans R:stages,...] [--f64] [--root DIR]
                                 [--out FILE]
 
 On fem_elasticity_3d(42) (n = 232,974) in f32, packed on ``--plan``
@@ -21,8 +21,10 @@ On fem_elasticity_3d(42) (n = 232,974) in f32, packed on ``--plan``
 
 ``--plans`` also times the packed kernel with each given register block
 and ring (R rows a thread, ring stages) and checks that its output
-equals the default plan's bit for bit.  With ``--ell`` the same as above
-for B3 (``bsr_spmm``) on fem42's blocked-ELL layout at bm = 128.  ``--root`` imports ``rbl_tpu_torch`` from another
+equals the default plan's bit for bit.  ``--f64`` also times the packed
+kernel (back to back and single calls) and ``torch.sparse.mm`` on the CSR
+matrix in f64 at every width.  With ``--ell`` the same as above for B3
+(``bsr_spmm``) on fem42's blocked-ELL layout at bm = 128.  ``--root`` imports ``rbl_tpu_torch`` from another
 checkout, so that two commits can be compared on one card in one call.
 Prints one JSON line per measurement.
 """
@@ -121,6 +123,8 @@ def main() -> int:
     ap.add_argument("--ell", action="store_true", help="also time B3 at bm=128")
     ap.add_argument("--plans", default="",
                     help="R:stages plans of the packed kernel to time too")
+    ap.add_argument("--f64", action="store_true",
+                    help="also time the packed kernel and CSR in f64")
     ap.add_argument("--root", default=ROOT,
                     help="checkout whose rbl_tpu_torch is measured")
     ap.add_argument("--out", default=None, help="also append the lines here")
@@ -195,6 +199,25 @@ def main() -> int:
                  equal_default=bool(torch.equal(got, want)))
     del op, flat
     torch.cuda.empty_cache()
+    if args.f64:
+        op = bsr.BlockSparseOperator.from_scipy(A, dtype=torch.float64, bm=bm,
+                                                unroll=U, device="cuda")
+        csr64 = torch.sparse_csr_tensor(
+            torch.from_numpy(A.indptr.astype(np.int64)),
+            torch.from_numpy(A.indices.astype(np.int64)),
+            torch.from_numpy(A.data.astype(np.float64)), size=A.shape).to("cuda")
+        for b in widths:
+            X = torch.randn((-(-n // 128) * 128, b), generator=g.manual_seed(b),
+                            dtype=torch.float64, device="cuda")
+            call = lambda: bsr.bsr_spmm_packed(op.tile_cols, op.hcount, op.rptr,
+                                               op.vals, X, bm=bm, bk=128, H=op.H,
+                                               unroll=U)
+            Xl = X[:n]
+            emit(kernel="bsr_spmm_packed", dtype="float64", plan=[bm, U], b=b,
+                 ms=back_to_back_ms(call), single_ms=single_ms(call),
+                 csr_ms=single_ms(lambda: torch.sparse.mm(csr64, Xl)))
+        del op, csr64
+        torch.cuda.empty_cache()
     if args.ell:
         bc, bv, nb, ncb, L = bsr._blocked_ell_from_scipy(A, 128, 128, np.float32)
         bc = torch.from_numpy(bc.reshape(-1)).cuda()
