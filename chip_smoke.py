@@ -887,7 +887,9 @@ def check_path_shapes(opK, amg, kernels: dict, card: str):
     """After phase 17: both packed entry points against the plain version,
     timed, at b = 8 on every AMG level that ``as_operator`` routed to BSR,
     f32 and f64 (level 0 is fem42's K, in the f64 of the solve); each row
-    is added to ``kernels[entry]["path_shapes"]``."""
+    is added to ``kernels[entry]["path_shapes"]``.  The entry a level
+    dispatches to is observed: one apply at b = 8, and the launch count
+    that moved."""
     import torch
 
     from rbl_tpu_torch.ops.spmm import bsr
@@ -901,11 +903,14 @@ def check_path_shapes(opK, amg, kernels: dict, card: str):
         label = "fem42 K = AMG level 0" if i == 0 else f"AMG level {i}"
         for dtype in ((torch.float64,) if i == 0 else (torch.float32, torch.float64)):
             op = lv.op if lv.op.dtype == dtype else cast_operator(lv.op, dtype)
-            ncb = -(-op._n // op.bk)
-            used = ("bsr_spmm_packed_resident"
-                    if ncb * op.bk * 8 * dtype.itemsize <= bsr._RESIDENT_X_BYTES
-                    else "bsr_spmm_packed")
-            for entry in ("bsr_spmm_packed_resident", "bsr_spmm_packed"):
+            entries = ("bsr_spmm_packed_resident", "bsr_spmm_packed")
+            before = [getattr(bsr, e).launches for e in entries]
+            op.apply(torch.zeros((op._n, 8), dtype=dtype, device="cuda"))
+            moved = [e for e, n0 in zip(entries, before) if getattr(bsr, e).launches > n0]
+            if len(moved) != 1:
+                raise AssertionError(f"{label} {dtype} b=8 launched {moved or 'no packed entry'}")
+            used = moved[0]
+            for entry in entries:
                 abs_err, rel, ms, plain_ms, moved, ops = compare_entry(
                     entry, op, 8, seed=17, timing=True)
                 lim = bound(moved, ops)

@@ -274,14 +274,14 @@ class _AMGLevel:
     inverses of its smoother, and what a report needs (n, nnz, route)."""
 
     def __init__(self, A: sp.csr_matrix, dof: int, omega: float, dtype,
-                 device, op=None, Winv=None, format: str = "auto"):
+                 device, op=None, Winv=None):
         from .spmm.operator import as_operator
 
         self.n = A.shape[0] if A is not None else op.n
         self.nnz = int(A.nnz) if A is not None else None
         self.dof = dof
         self.op = op if op is not None else as_operator(
-            A, dtype=dtype, device=device, format=format)
+            A, dtype=dtype, device=device)
         if Winv is None:
             Winv = _block_diag_inv(A, dof, omega)
         self.Winv = torch.as_tensor(np.array(Winv), dtype=dtype, device=device)
@@ -437,7 +437,6 @@ class AssembledMultigrid:
         max_levels: int = 12,
         dtype=torch.float64,
         device=None,
-        format: str = "auto",
     ) -> "AssembledMultigrid":
         """Build the hierarchy from a scipy sparse SPD matrix.
 
@@ -447,8 +446,6 @@ class AssembledMultigrid:
             ``rigid_body_modes(coords)`` for elasticity with rotations).
         theta: strength threshold on the normalized block graph.
         omega: block-Jacobi smoother damping.
-        format: the sparse layout of the level operators, as
-            ``as_operator`` takes it ("auto": its router picks).
         """
         dev = resolve_device(device)
         A = sp.csr_matrix(A).astype(np.float64)
@@ -466,8 +463,7 @@ class AssembledMultigrid:
         for _ in range(max_levels):
             if Al.shape[0] <= coarsest_n:
                 break
-            levels.append(_AMGLevel(Al, dofl, omega, dtype, dev,
-                                    format=format))
+            levels.append(_AMGLevel(Al, dofl, omega, dtype, dev))
             S = _node_strength_graph(Al, dofl)
             agg = _aggregate(S, theta)
             Pt, Bc, agg_meta = _tentative_prolongator(agg, Bl, dofl)
@@ -502,7 +498,6 @@ class AssembledMultigrid:
         max_levels: int = 12,
         dtype=torch.float64,
         device=None,
-        format: str = "auto",
     ) -> "AssembledMultigrid":
         """Geometric hierarchy for a matrix assembled on a regular node grid
         (the FEM benchmark class — ``utils.fem.fem_elasticity_3d`` after
@@ -516,7 +511,7 @@ class AssembledMultigrid:
         (scipy, at construction), applied through the sparse-operator
         router.  Trilinear P reproduces linear fields, so all 6 elasticity
         rigid-body modes transfer exactly — no near-nullspace input
-        needed.  ``format``: as for :meth:`smoothed_aggregation`."""
+        needed."""
         dev = resolve_device(device)
         A = sp.csr_matrix(A).astype(np.float64)
         dims = tuple(int(x) for x in node_dims)
@@ -530,8 +525,7 @@ class AssembledMultigrid:
         for _ in range(max_levels):
             if Al.shape[0] <= coarsest_n or min(dl) < 3:
                 break
-            levels.append(_AMGLevel(Al, dof, omega, dtype, dev,
-                                    format=format))
+            levels.append(_AMGLevel(Al, dof, omega, dtype, dev))
             P1s = [_grid_prolong_1d(m) for m in dl]
             cdl = tuple(P.shape[1] for P in P1s)
             transfers.append(_GridTransfer(dl, cdl, P1s, dof))

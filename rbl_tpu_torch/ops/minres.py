@@ -17,8 +17,8 @@ Design:
   per-column (b,) scalar recurrences.  No per-column Python loop.
 - The loop runs on the host; every per-column quantity stays on the
   device.  The stop test ``any(φ̄ > tol·β₁)`` is the loop's only
-  device→host read, and it is taken every ``check_every`` iterations
-  (``DEFAULT_CHECK_EVERY``), not every one: between two reads the host
+  device→host read, and it is taken every ``DEFAULT_CHECK_EVERY``
+  iterations, not every one: between two reads the host
   queues iterations ahead of the card.  Iterations past convergence only
   shrink φ̄ further (a column that broke down exactly stays put through the
   guards), so the answer is the same as the JAX package's or better, and
@@ -47,7 +47,8 @@ import torch
 from .spmm.operator import LinearOperator, cast_operator
 
 # Iterations between two reads of the MINRES stop test (see the module
-# docstring and PERF.md: the cost of a read on the card).
+# docstring and PERF.md: the cost of a read on the card).  1 stops at the
+# first converged iterate, as the JAX package's ``lax.while_loop`` does.
 DEFAULT_CHECK_EVERY = 4
 
 
@@ -72,7 +73,6 @@ def block_minres(
     tol: float = 1e-11,
     maxiter: Optional[int] = None,
     psolve: Optional[Callable[[torch.Tensor], torch.Tensor]] = None,
-    check_every: Optional[int] = None,
 ):
     """Solve (A − shift·I) X = B columnwise with MINRES in lockstep.
 
@@ -91,9 +91,6 @@ def block_minres(
         — Lanczos runs on T^{1/2}·(A−σI)·T^{1/2} implicitly, one ``psolve``
         per iteration, no T^{1/2} ever formed.  T must be symmetric
         positive definite.
-    check_every: iterations between two reads of the stop test (default
-        ``DEFAULT_CHECK_EVERY``); 1 stops at the first converged iterate,
-        as the JAX package's ``lax.while_loop`` does.
 
     Returns
     -------
@@ -108,9 +105,6 @@ def block_minres(
     if maxiter is None:
         maxiter = 3 * n
     maxiter = int(min(maxiter, 2**31 - 1))
-    cadence = int(check_every or DEFAULT_CHECK_EVERY)
-    if cadence < 1:
-        raise ValueError(f"check_every must be ≥ 1, got {check_every}")
     eps = float(torch.finfo(dt).eps)
     sigma = torch.as_tensor(shift, dtype=dt, device=dev)
 
@@ -140,7 +134,7 @@ def block_minres(
 
     itn = 0
     while itn < maxiter:
-        if itn % cadence == 0 and not bool(torch.any(phibar > thresh)):
+        if itn % DEFAULT_CHECK_EVERY == 0 and not bool(torch.any(phibar > thresh)):
             break
         itn += 1
         v = y / safe_beta[None, :]

@@ -454,8 +454,9 @@ def rbl_polished(
     filter passes.  If the coarse stage finds nothing usable
     (pathological), the solve falls back to a cold f64 ``rbl_restarted``
     — identical to the plain restarted solver — whose sweeps start at
-    ``cfg.restart_kryl_dim`` columns, at least max(8b, 2k) rounded up to
-    b, under a budget of 4·⌈k/b⌉ + 16 restarts.
+    max(8b, 2k) columns rounded up to b, as in the JAX package, or at
+    ``cfg.restart_kryl_dim`` when the caller sets it to another value than
+    its default, under a budget of 4·⌈k/b⌉ + 16 restarts.
 
     ``checkpoint_path`` is honored on BOTH paths: the warm polish writes
     an atomic filter-pass-boundary checkpoint and removes it on success,
@@ -488,8 +489,10 @@ def rbl_polished(
     if warm_V is None:
         # cold fallback: the restarted polish path (no warm subspace to
         # filter — grow one the Krylov way)
-        kryl = max(cfg.restart_kryl_dim, 8 * b, 2 * k)
-        kryl += (-kryl) % b
+        kryl = cfg.restart_kryl_dim
+        if kryl == RBLConfig.restart_kryl_dim:
+            kryl = max(8 * b, 2 * k)
+            kryl += (-kryl) % b
         from .restarted import rbl_restarted
 
         return rbl_restarted(

@@ -29,6 +29,7 @@ from rbl_tpu_torch.ops.amg import (
     detect_dof_blocks,
     rigid_body_modes,
 )
+from rbl_tpu_torch.ops import minres as minres_mod
 from rbl_tpu_torch.ops.minres import block_minres, jacobi_psolve
 from rbl_tpu_torch.utils.convert import amg_from_arrays
 
@@ -170,24 +171,24 @@ def test_amg_cycle_is_spd(build):
     assert float(u[:, 0] @ amg.psolve(u)[:, 0]) > 0
 
 
-def test_amg_cuts_minres_iterations():
+def test_amg_cuts_minres_iterations(monkeypatch):
     """fem3d-8 elasticity at σ = 0: scalar Jacobi ~131, block Jacobi ~121,
     SA-AMG with rigid modes ~20, grid AMG ~25 (the JAX file's gates)."""
+    monkeypatch.setattr(minres_mod, "DEFAULT_CHECK_EVERY", 1)
     A = fem_elasticity_3d(8)
     op = rtt.as_operator(A, dtype=F64, device=CPU, format="ell")
     B = torch.from_numpy(np.random.default_rng(0).standard_normal((A.shape[0], 4)))
 
     def iters(ps):
-        _, (it, _) = block_minres(op.apply, B, tol=1e-10, psolve=ps, maxiter=4000,
-                                  check_every=1)
+        _, (it, _) = block_minres(op.apply, B, tol=1e-10, psolve=ps, maxiter=4000)
         return it
 
     it_jac = iters(jacobi_psolve(op.diagonal()))
     it_bj = iters(block_jacobi_psolve(A, device=CPU))
     sa = AssembledMultigrid.smoothed_aggregation(
-        A, dof=3, near_nullspace=rigid_body_modes(_fem_coords(8)), device=CPU, format="ell")
+        A, dof=3, near_nullspace=rigid_body_modes(_fem_coords(8)), device=CPU)
     it_sa = iters(sa.psolve)
-    gg = AssembledMultigrid.from_grid(A, (8, 9, 9), dof=3, device=CPU, format="ell")
+    gg = AssembledMultigrid.from_grid(A, (8, 9, 9), dof=3, device=CPU)
     it_gg = iters(gg.psolve)
     assert it_bj <= it_jac
     assert it_sa * 4 <= it_jac, (it_sa, it_jac)
@@ -253,11 +254,13 @@ def test_vibration_solve_with_amg_matches_scipy(build):
     A = fem_elasticity_3d(N)
     m = np.asarray(A.sum(axis=1)).ravel()
     m = np.abs(m) + 1e-3 * np.abs(m).mean()
-    kw = dict(dof=3, device=CPU, coarsest_n=100, format="ell")
+    kw = dict(dof=3, device=CPU, coarsest_n=100)
     amg = (AssembledMultigrid.from_grid(A, (N, N + 1, N + 1), **kw) if build == "grid"
            else AssembledMultigrid.smoothed_aggregation(A, **kw))
-    assert len(amg.levels) == 1 and "SparseEllOperator" in amg.report()
     opA = rtt.as_operator(A, dtype=F64, device=CPU, format="ell")
+    # the level operator is the router's choice (DIA for this band on the CPU)
+    route = type(rtt.as_operator(A, dtype=F64, device=CPU)).__name__
+    assert len(amg.levels) == 1 and f"route={route}" in amg.report()
     res = rtt.rbl_generalized(opA, rtt.DiagonalOperator(torch.from_numpy(m)), 4,
                               cfg=rtt.RBLConfig(tol=1e-8), which="LM", sigma=0.0,
                               inner_psolve=amg.psolve)

@@ -298,12 +298,13 @@ def test_sweep_resume_on_the_card(cap, tmp_path):
 
 
 @pytest.mark.gpu
-def test_cuda_minres_solve_goes_through_the_packed_kernel():
+def test_cuda_minres_solve_goes_through_the_packed_kernel(monkeypatch):
     """An SM solve of fem_elasticity_3d(6) in f64 through the shift-invert
     operator on a packed-BSR A: every inner MINRES iteration launches B1
     (b = 4, X under the resident limit), and the eigenvalues agree with the
     dense spectrum's low end within 1e-10 relative."""
     _needs_card()
+    from rbl_tpu_torch.ops import minres as minres_mod
     from rbl_tpu_torch.ops.minres import ShiftInvertOperator, block_minres
 
     A = fem_elasticity_3d(6)
@@ -311,7 +312,9 @@ def test_cuda_minres_solve_goes_through_the_packed_kernel():
     B = torch.randn((A.shape[0], 4), dtype=torch.float64, device="cuda",
                     generator=torch.Generator(device="cuda").manual_seed(0))
     n0 = tbsr.bsr_spmm_packed_resident.launches
-    X, (itn, rel) = block_minres(op.apply, B, tol=1e-12, check_every=1)
+    with monkeypatch.context() as m:
+        m.setattr(minres_mod, "DEFAULT_CHECK_EVERY", 1)
+        X, (itn, rel) = block_minres(op.apply, B, tol=1e-12)
     assert tbsr.bsr_spmm_packed_resident.launches - n0 == itn > 0
     ref = np.linalg.solve(A.toarray(), B.cpu().numpy())
     assert rel_err(X.cpu().numpy(), ref) < 1e-9

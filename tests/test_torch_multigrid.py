@@ -23,6 +23,7 @@ from rbl_tpu.ops.multigrid import mg_psolve_for as jax_mg_psolve_for
 import rbl_tpu_torch as rtt
 from _torch_parity import CPU, rel_err
 from rbl_tpu_torch.ops.fdm import fdm_min_shift_gap, fdm_solver_for
+from rbl_tpu_torch.ops import minres as minres_mod
 from rbl_tpu_torch.ops.minres import ShiftInvertOperator, block_minres, default_inner_tol
 from rbl_tpu_torch.ops.multigrid import (
     MultigridCycle2D,
@@ -107,12 +108,13 @@ def test_mesh_independent_contraction():
 
 @pytest.mark.parametrize("dims,factor,ceiling", [((128, 128), 10, 30),
                                                  ((16, 16, 16), 3, 40)])
-def test_mg_cuts_minres_iterations(dims, factor, ceiling):
+def test_mg_cuts_minres_iterations(dims, factor, ceiling, monkeypatch):
+    monkeypatch.setattr(minres_mod, "DEFAULT_CHECK_EVERY", 1)
     op, _ = _lap(*dims)
     B = torch.from_numpy(np.random.default_rng(1).standard_normal((op.n, 4)))
-    _, (it_none, _) = block_minres(op.apply, B, tol=1e-10, check_every=1)
+    _, (it_none, _) = block_minres(op.apply, B, tol=1e-10)
     _, (it_mg, _) = block_minres(op.apply, B, tol=1e-10,
-                                 psolve=mg_psolve_for(op), check_every=1)
+                                 psolve=mg_psolve_for(op))
     assert it_mg * factor <= it_none
     assert it_mg < ceiling
 

@@ -221,14 +221,26 @@ def test_polished_warm_matches_jax():
     assert tres.eigenvectors.dtype == torch.float64
 
 
-def test_polished_cold_fallback_goes_through_rbl_restarted(monkeypatch, tmp_path):
+@pytest.mark.parametrize("kryl,first_sweep", [(None, 16), (48, 48)])
+def test_polished_cold_fallback_goes_through_rbl_restarted(monkeypatch, tmp_path,
+                                                           kryl, first_sweep):
     """A coarse stage that returns garbage (non-finite vectors): the solve
     falls back to a cold f64 ``rbl_restarted`` with the derived sweep
-    length, which checkpoints at restart boundaries."""
+    length, which checkpoints at restart boundaries.  The first sweep is
+    the JAX package's max(8b, 2k) rounded up to b, or the caller's
+    ``cfg.restart_kryl_dim``."""
+    from rbl_tpu_torch.solver import restarted as trestarted
+
     lam = _lap_spectrum()
     k, b = 4, 2
     real = tpolish.rbl
+    real_restarted = trestarted.rbl_restarted
     calls = []
+    sweeps = []
+
+    def spy(A, k_, cfg=None, **kw):
+        sweeps.append(cfg.restart_kryl_dim)
+        return real_restarted(A, k_, cfg=cfg, **kw)
 
     def garbage(A, k_, cfg=None, **kw):
         res = real(A, k_, cfg=cfg, **kw)
@@ -237,15 +249,17 @@ def test_polished_cold_fallback_goes_through_rbl_restarted(monkeypatch, tmp_path
         return res
 
     monkeypatch.setattr(tpolish, "rbl", garbage)
+    monkeypatch.setattr(trestarted, "rbl_restarted", spy)
     path = str(tmp_path / "cold.npz")
-    res = rtt.rbl_polished(_lap(), k, cfg=rtt.RBLConfig(tol=1e-8), b=b,
-                           checkpoint_path=path)
-    assert calls == [torch.float32]
+    cfg = rtt.RBLConfig(tol=1e-8)
+    if kryl is not None:
+        cfg = cfg.replace(restart_kryl_dim=kryl)
+    res = rtt.rbl_polished(_lap(), k, cfg=cfg, b=b, checkpoint_path=path)
+    assert calls == [torch.float32] and sweeps == [first_sweep]
     assert res.converged and os.path.exists(path)  # the restart-boundary file
     np.testing.assert_allclose(res.eigenvalues, lam[::-1][:k], rtol=1e-9)
-    # iterations counts restarts on this path; the sweep started at
-    # cfg.restart_kryl_dim (at least max(8b, 2k) rounded up to b)
-    assert res.kryl_dim >= 100 and res.iterations >= 1
+    # iterations counts restarts on this path
+    assert res.kryl_dim >= first_sweep and res.iterations >= 1
 
 
 @pytest.mark.parametrize("entry", [

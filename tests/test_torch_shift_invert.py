@@ -2,7 +2,8 @@
 (the twin of tests/test_shift_invert.py).
 
 Step-level checks give both packages the same B and preconditioner: with
-the stop test read every iteration (``check_every=1``) the port's MINRES
+the stop test read every iteration (``DEFAULT_CHECK_EVERY`` patched to 1)
+the port's MINRES
 runs the JAX package's iterations and its solution agrees at 1e-12
 relative; at the default cadence it is held to the dense solve.  Solves
 compare eigenvalues, never vectors.
@@ -24,6 +25,7 @@ from rbl_tpu.ops.minres import jacobi_psolve as jax_jacobi_psolve
 
 import rbl_tpu_torch as rtt
 from _torch_parity import CPU, rel_err
+from rbl_tpu_torch.ops import minres as minres_mod
 from rbl_tpu_torch.ops.minres import (
     ShiftInvertOperator,
     block_minres,
@@ -58,7 +60,7 @@ def _case(name):
 
 @pytest.mark.parametrize("name", ["indefinite_diagonal", "jacobi_scaled",
                                   "laplacian_interior"])
-def test_block_minres_matches_jax(name):
+def test_block_minres_matches_jax(name, monkeypatch):
     A, sig, pc, b = _case(name)
     B = np.random.default_rng(0).standard_normal((A.shape[0], b))
     jop = rt.as_operator(A)
@@ -69,8 +71,10 @@ def test_block_minres_matches_jax(name):
         tps = jacobi_psolve(top.diagonal() - sig)
     Xj, (itj, _) = jax_block_minres(jop.apply, jnp.asarray(B), shift=sig,
                                     tol=1e-12, psolve=jps)
-    X, (it, rel) = block_minres(top.apply, _t(B), shift=sig, tol=1e-12,
-                                psolve=tps, check_every=1)
+    with monkeypatch.context() as m:
+        m.setattr(minres_mod, "DEFAULT_CHECK_EVERY", 1)
+        X, (it, rel) = block_minres(top.apply, _t(B), shift=sig, tol=1e-12,
+                                    psolve=tps)
     assert it == int(itj)
     assert rel_err(X.numpy(), Xj) < 1e-12
     # the default cadence runs at most DEFAULT_CHECK_EVERY − 1 iterations
@@ -98,14 +102,21 @@ def test_breakdown_columns_stay_finite():
     assert itz == 0
 
 
-def test_maxiter_caps_and_cadence_checks():
+def test_maxiter_caps_and_cadence_checks(monkeypatch):
     d = torch.arange(1.0, 201.0, dtype=torch.float64)
     B = torch.ones((200, 2), dtype=torch.float64)
     _, (itn, _) = block_minres(lambda V: d[:, None] * V, B, shift=37.3,
                                tol=1e-14, maxiter=5)
     assert itn == 5
-    with pytest.raises(ValueError, match="check_every"):
-        block_minres(lambda V: V, B, check_every=-1)
+    # the stop test is read only every DEFAULT_CHECK_EVERY iterations: the
+    # count rounds up to the cadence, never past it
+    counts = {}
+    for c in (1, 4, 16):
+        monkeypatch.setattr(minres_mod, "DEFAULT_CHECK_EVERY", c)
+        _, (counts[c], _) = block_minres(lambda V: d[:, None] * V, B,
+                                         shift=37.3, tol=1e-10)
+    for c in (4, 16):
+        assert counts[c] % c == 0 and counts[1] <= counts[c] < counts[1] + c
 
 
 def test_jacobi_psolve_matches_jax():

@@ -7,8 +7,10 @@ stop-test cadences, and the assembled multigrid's host set-up.
                                         [--device cuda] [--out FILE]
 
 ``block_minres`` reads its stop test ``any(φ̄ > tol·β₁)`` back to the host
-every ``check_every`` iterations; between two reads the host queues
-iterations ahead of the card.  For each cadence this times one inner solve
+every ``DEFAULT_CHECK_EVERY`` iterations (a module constant of
+``rbl_tpu_torch.ops.minres``, which this script sets to each cadence in
+turn); between two reads the host queues iterations ahead of the card.
+For each cadence this times one inner solve
 (tol 1e-11, f64, warm, host clock ending in a synchronize, median of
 ``--reps``) of
 
@@ -50,6 +52,7 @@ def main() -> int:
     import torch
 
     import rbl_tpu_torch as rt
+    from rbl_tpu_torch.ops import minres as minres_mod
     from rbl_tpu_torch.ops.minres import block_minres
     from rbl_tpu_torch.ops.multigrid import mg_psolve_for
     from rbl_tpu_torch.utils.fem import fem_elasticity_3d
@@ -110,8 +113,8 @@ def main() -> int:
     for label, apply, psolve, B in cases:
         base = None
         for c in cadences:
-            wall, itn = timed(lambda: block_minres(apply, B, tol=1e-11, psolve=psolve,
-                                                   check_every=c))
+            minres_mod.DEFAULT_CHECK_EVERY = c
+            wall, itn = timed(lambda: block_minres(apply, B, tol=1e-11, psolve=psolve))
             per = wall / max(itn, 1)
             base = per if base is None else base
             emit(case=label, check_every=c, iterations=itn, wall_s=wall,
