@@ -97,17 +97,40 @@ a user calls, and checks the answers:
  18. rbl_svd(which="SM"): a seeded dense 20,000 × 2,000 f64 matrix with
      singular values 1 + 9·√t over [1, 10] (k = 10) against
      svds(which="SM") within 1e-8, and phase 15's sparse factor (k = 5)
-     held by ‖B·V − U·diag(s)‖ and ‖Bᵀ·U − V·diag(s)‖.
+     held by ‖B·V − U·diag(s)‖ and ‖Bᵀ·U − V·diag(s)‖;
+ 19. rbl_tpu_torch.eigsh(A, k=100) on fem42's f64 CSR with scipy's defaults
+     (which="LM", tol=0 → 1e-7), the reference's own ARPACK comparison:
+     numpy out, ascending, held to the ARPACK head within 1e-2, with the max
+     true residual ‖A·v − λ·v‖ (on the card), the wall and the packed
+     kernel's launches; once more with return_eigenvectors=False, in scipy's
+     order (ascending |λ|);
+ 20. the three eig backends ("banded_host", "native", "device") on phase
+     4's lap2d_512_k50_b16 and phase 5's fem42_k100_b8, each held to its
+     solve's gate, with the seconds of a factorization (the Timer's
+     "eig_poll" and "eig" sections over their count);
+ 21. eigsh(K, 8, M=M, sigma=0) on phase 17's fem3d-16 within 1e-8 of
+     scipy's factorized eigsh, with the smoothed-aggregation AMG that
+     eigsh's auto route builds for it, built once and passed as inner_psolve;
+     svds(B, k=10) and svds(B, k=10, which="SM") on phases 15's and 18's
+     dense factors within 1e-8 of rbl_svd's values (tol 1e-10), ascending;
+ 22. fem3d-16 written to a .mtx file: the native reader (csrc/host/mmio.cpp)
+     and scipy.io.mmread give equal matrices, with both read times; one
+     fem42 b=8 apply inside rbl_tpu_torch.utils.profiling.trace(), whose
+     exported Chrome trace must hold csrc/bsr_spmm.cu's kernel as a device
+     event.
 
-Phases 11-14 and 17 launch B1/B2 through BlockSparseOperator.apply.
+Phases 11-14, 17, 19, 20 and 22 launch B1/B2 through BlockSparseOperator.apply.
 Phase 14's fem42 polish applies A to k + buffer + random columns at once
 (48 here), in f64 and in f32 filter chains, so after it both packed entry
 points are held against the plain version on fem42 at that width, f32 and
 f64, and timed, beside torch.sparse CSR at 48 and 90 columns.  In the
 kernels' record ``launches`` is the count of the path the row's times were
 taken on (phases 4-5 for B1/B2) and ``launches_by_phase`` holds every
-path's own count; phases 11-13 and 17 must launch B1 and phase 14 both B1
-(its f32 coarse sweep) and B2.  The last two lines are the kernels' JSON
+path's own count; phases 11-13, 17, 20 and 22 must launch B1, phase 14
+both B1 (its f32 coarse sweep) and B2, and phase 19 one of them.  After
+phase 17 each BSR level's product is also timed through torch.sparse CSR
+(the level's nonzeros), and after phase 14 both entry points are timed at
+90 columns too.  The last two lines are the kernels' JSON
 record and the JSON result.  Any
 failure raises, and the script exits non-zero; it also exits non-zero,
 printing no result, when no CUDA device is available.
@@ -185,6 +208,19 @@ def bound(nbytes: int, ops: int) -> dict:
                 bound_by="bytes" if t_bytes >= t_ops else "operations")
 
 
+def sparse_need(vals, n: int, b: int) -> tuple[int, int]:
+    """The bytes and operations a product of the n×n matrix whose nonzeros
+    the tiles ``vals`` hold with ``b`` columns needs, whatever the layout:
+    each nonzero's value and int32 column index read once, X read once, Y
+    written once; two operations a nonzero and column.  The tiles' zero
+    padding is neither bytes nor work the matrix needs."""
+    import torch
+
+    nnz = int(torch.count_nonzero(vals))
+    es = vals.element_size()
+    return nnz * (es + 4) + 2 * n * b * es, 2 * nnz * b
+
+
 def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
@@ -232,10 +268,7 @@ def compare_entry(entry: str, op, b: int, seed: int, timing: bool):
     if timing:
         ms = time_ms(lambda: fn(*args, H=op.H, **kw))
         plain_ms = time_ms(lambda: bsr.bsr_spmm_packed_reference(*args, **kw))
-    nrows = op.rptr.shape[0] * op.bm
-    moved = nbytes(*args) + nrows * b * X.element_size()
-    ops = 2 * op.vals.numel() * b
-    return abs_err, rel, ms, plain_ms, moved, ops
+    return abs_err, rel, ms, plain_ms, *sparse_need(op.vals, op._n, b)
 
 
 def ragged_matrix(n: int = 1999, seed: int = 0):
@@ -275,14 +308,23 @@ def chung_lu(n: int = 262_144, mean_deg: float = 16.0, gamma: float = 2.1,
     return A
 
 
-def torch_csr(A, dtype):
+def torch_csr(A, dtype, device: str = "cuda"):
     import torch
 
     return torch.sparse_csr_tensor(
         torch.from_numpy(A.indptr.astype(np.int64)),
         torch.from_numpy(A.indices.astype(np.int64)),
         torch.from_numpy(A.data).to(dtype), size=A.shape,
-    ).to("cuda")
+    ).to(device)
+
+
+def sync(device) -> None:
+    """Wait for the work queued on ``device`` (nothing to wait for on the
+    CPU)."""
+    import torch
+
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
 
 
 def laplacian_check(eigenvalues, nx: int) -> float:
@@ -581,6 +623,30 @@ def phase_polish(A, head, card: str):
     return op64, int(res.kryl_dim)
 
 
+def dense_factor(seed: int, s, m: int = 20_000, device: str = "cuda"):
+    """A seeded dense m × len(s) f64 matrix Q1·diag(s)·Q2ᵀ with orthonormal
+    Q1, Q2 drawn on ``device`` (phases 15, 18 and 21)."""
+    import torch
+
+    n = s.shape[0]
+    g = torch.Generator(device=device).manual_seed(seed)
+    Q1, _ = torch.linalg.qr(torch.randn((m, n), generator=g, dtype=torch.float64,
+                                        device=device))
+    Q2, _ = torch.linalg.qr(torch.randn((n, n), generator=g, dtype=torch.float64,
+                                        device=device))
+    return (Q1 * s) @ Q2.T
+
+
+def sm_spectrum(n: int = 2_000, device: str = "cuda"):
+    """Phase 18's singular values σ = 1 + 9·√t over t ∈ [0, 1], descending:
+    the small end sparser than a linear spread, so scipy's ARPACK reaches it
+    in seconds."""
+    import torch
+
+    return 1.0 + 9.0 * torch.sqrt(torch.linspace(1.0, 0.0, n, dtype=torch.float64,
+                                                 device=device))
+
+
 def phase_svd(card: str):
     """Phase 15."""
     import scipy.sparse.linalg as spla
@@ -588,14 +654,8 @@ def phase_svd(card: str):
 
     import rbl_tpu_torch as rt
 
-    g = torch.Generator(device="cuda").manual_seed(15)
     m, n, k = 20_000, 2_000, 20
-    Q1, _ = torch.linalg.qr(torch.randn((m, n), generator=g, dtype=torch.float64,
-                                        device="cuda"))
-    Q2, _ = torch.linalg.qr(torch.randn((n, n), generator=g, dtype=torch.float64,
-                                        device="cuda"))
-    B = (Q1 * (0.9 ** torch.arange(n, dtype=torch.float64, device="cuda"))) @ Q2.T
-    del Q1, Q2
+    B = dense_factor(15, 0.9 ** torch.arange(n, dtype=torch.float64, device="cuda"), m)
     t0 = time.perf_counter()
     ref = np.sort(spla.svds(B.cpu().numpy(), k=k, return_singular_vectors=False))[::-1]
     svds_s = time.perf_counter() - t0
@@ -699,16 +759,6 @@ def phase_stencil_shift_invert(card: str, nx: int = 512, device: str = "cuda"):
     return out
 
 
-def lumped_mass(nx: int) -> np.ndarray:
-    """The lumped (diagonal) mass of fem_elasticity_3d(nx): density 1, h = 1,
-    each hex's volume shared equally by its 8 nodes, the z = 0 face clamped
-    away, repeated over the 3 dofs of a node."""
-    ax = np.arange(nx + 1)
-    cells = np.where((ax > 0) & (ax < nx), 2.0, 1.0)  # hexes along an axis
-    node = cells[1:, None, None] * cells[None, :, None] * cells[None, None, :] / 8.0
-    return np.repeat(node.ravel(), 3)
-
-
 def vibration_solve(A, m, node_dims, build: str, label: str, card: str,
                     device: str = "cuda"):
     """rbl_generalized(K, M, k=8, b=8, σ=0) with an AssembledMultigrid inner
@@ -765,10 +815,8 @@ def phase_vibration(A, norm: float, card: str, device: str = "cuda",
     operator and its AMG hierarchy."""
     import scipy.sparse as sp
     import scipy.sparse.linalg as spla
-    import torch
 
-    import rbl_tpu_torch as rt
-    from rbl_tpu_torch.utils.fem import fem_elasticity_3d
+    from rbl_tpu_torch.utils.fem import fem_elasticity_3d, lumped_mass
 
     m = lumped_mass(large_nx)
     res, info, wall, setup_s, resid, orth, amg = vibration_solve(
@@ -810,18 +858,9 @@ def phase_svd_sm(card: str, device: str = "cuda", m: int = 20_000, n: int = 2_00
 
     import rbl_tpu_torch as rt
 
-    g = torch.Generator(device=device).manual_seed(18)
     k = 10
-    Q1, _ = torch.linalg.qr(torch.randn((m, n), generator=g, dtype=torch.float64,
-                                        device=device))
-    Q2, _ = torch.linalg.qr(torch.randn((n, n), generator=g, dtype=torch.float64,
-                                        device=device))
-    # σ = 1 + 9·√t over t ∈ [0, 1]: the small end sparser than a linear
-    # spread, so scipy's ARPACK reaches it in seconds
-    s_true = 1.0 + 9.0 * torch.sqrt(torch.linspace(1.0, 0.0, n, dtype=torch.float64,
-                                                    device=device))
-    B = (Q1 * s_true) @ Q2.T
-    del Q1, Q2
+    s_true = sm_spectrum(n, device)
+    B = dense_factor(18, s_true, m, device)
     t0 = time.perf_counter()
     ref = np.sort(spla.svds(B.cpu().numpy(), k=k, which="SM",
                             return_singular_vectors=False))
@@ -883,6 +922,25 @@ def sparse_factor(m: int = 200_000, n: int = 50_000, per_row: int = 10):
     return S
 
 
+def csr_from_packed(op):
+    """The packed operator's nonzeros as a torch.sparse CSR matrix on its
+    device (padding tiles and the padded rows and columns dropped)."""
+    import torch
+
+    from rbl_tpu_torch.ops.spmm.bsr import _packed_chunks
+
+    row, chunk = _packed_chunks(op.hcount, op.rptr)
+    U = op.unroll
+    tiles = (chunk[:, None] * U + torch.arange(U, device=op.device)).reshape(-1)
+    tv = op.vals[tiles]
+    t, r, q = torch.nonzero(tv, as_tuple=True)
+    rows = row.repeat_interleave(U)[t] * op.bm + r
+    cols = op.tile_cols.long()[tiles][t] * op.bk + q
+    coo = torch.sparse_coo_tensor(torch.stack([rows, cols]), tv[t, r, q],
+                                  (op._n, op._n))
+    return coo.coalesce().to_sparse_csr()
+
+
 def check_path_shapes(opK, amg, kernels: dict, card: str):
     """After phase 17: both packed entry points against the plain version,
     timed, at b = 8 on every AMG level that ``as_operator`` routed to BSR,
@@ -910,6 +968,20 @@ def check_path_shapes(opK, amg, kernels: dict, card: str):
             if len(moved) != 1:
                 raise AssertionError(f"{label} {dtype} b=8 launched {moved or 'no packed entry'}")
             used = moved[0]
+            # the library's time for the same product: the level's nonzeros
+            # as torch.sparse CSR
+            csr = csr_from_packed(op)
+            Xl = padded_x(op, 8, seed=17)[: op._n]
+            lib_ms = time_ms(lambda: torch.sparse.mm(csr, Xl))
+            Yp = bsr.bsr_spmm_packed_reference(
+                op.tile_cols, op.hcount, op.rptr, op.vals, padded_x(op, 8, seed=17),
+                bm=op.bm, bk=op.bk, unroll=op.unroll)[: op._n]
+            lib_rel = float((torch.sparse.mm(csr, Xl) - Yp).abs().max()
+                            / Yp.abs().max())
+            if not lib_rel < TOL[str(dtype)[6:]]:
+                raise AssertionError(f"{label} {dtype}: CSR of the packed tiles off "
+                                     f"the plain version by {lib_rel:.3e}")
+            del csr
             for entry in entries:
                 abs_err, rel, ms, plain_ms, moved, ops = compare_entry(
                     entry, op, 8, seed=17, timing=True)
@@ -917,13 +989,232 @@ def check_path_shapes(opK, amg, kernels: dict, card: str):
                 kernels[entry].setdefault("path_shapes", []).append(dict(
                     phase=17, shape=f"{label} n={op._n} plan ({op.bm}, {op.unroll}) "
                     f"{str(dtype)[6:]} b=8", dispatched=entry == used,
-                    max_abs_err=abs_err, ms=ms, plain_ms=plain_ms, **lim))
+                    max_abs_err=abs_err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                    **lim))
                 tag = " (the path's entry)" if entry == used else ""
                 print(f"{entry} {label} (n={op._n}, plan ({op.bm}, {op.unroll}), "
                       f"{op.nnz_blocks} tiles) b=8 {dtype}{tag}: "
                       f"rel err {rel:.2e}, kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+                      f"torch.sparse CSR {lib_ms:.4f} ms, "
                       f"bound {lim['bound_ms']:.4f} ms ({lim['bound_ms'] / ms:.0%})  "
                       f"[{card}]")
+
+
+def phase_eigsh(A, head, card: str, device: str = "cuda"):
+    """Phase 19: the reference's own ARPACK comparison through scipy's
+    signature, eigsh(A, k=100) with scipy's defaults (which="LM", tol=0 →
+    1e-7) on fem42's f64 CSR; held to the ARPACK head and by the true
+    residuals on the card, then once more without eigenvectors."""
+    import torch
+
+    import rbl_tpu_torch as rt
+    from rbl_tpu_torch.ops.spmm import bsr
+
+    cfg = rt.RBLConfig(device=device)  # scipy's call, on the card by default
+    t0 = time.perf_counter()
+    w, V = rt.eigsh(A, k=100, cfg=cfg)
+    wall = time.perf_counter() - t0
+    if not (isinstance(w, np.ndarray) and isinstance(V, np.ndarray)
+            and w.shape == (100,) and V.shape == (A.shape[0], 100)
+            and np.all(np.isfinite(w)) and np.all(np.diff(w) >= 0)):
+        raise AssertionError("eigsh fem42: not 100 finite ascending values "
+                             "with numpy vectors")
+    err = float(np.max(np.abs(w[::-1][: len(head)] - head) / head))
+    if not err < 1e-2:
+        raise AssertionError(f"eigsh fem42: max rel error {err:.3e} vs ARPACK "
+                             "head ≥ 1e-2")
+    csr = torch_csr(A, torch.float64, device)
+    Vd = torch.from_numpy(V).to(device)
+    wd = torch.from_numpy(w).to(device)
+    resid = float((torch.sparse.mm(csr, Vd) - Vd * wd).norm(dim=0).max())
+    del csr, Vd
+    routes = {f.__name__: f.launches for f in (bsr.bsr_spmm_packed_resident,
+                                                bsr.bsr_spmm_packed)}
+    t0 = time.perf_counter()
+    w2 = rt.eigsh(A, k=100, return_eigenvectors=False, cfg=cfg)
+    wall2 = time.perf_counter() - t0
+    if not np.all(np.diff(np.abs(w2)) >= 0):
+        raise AssertionError("eigsh fem42 without vectors: not scipy's LM order "
+                             "(ascending |λ|)")
+    err2 = float(np.max(np.abs(w2[::-1][: len(head)] - head) / head))
+    if not err2 < 1e-2:
+        raise AssertionError(f"eigsh fem42 without vectors: max rel error "
+                             f"{err2:.3e} vs ARPACK head ≥ 1e-2")
+    print(f"eigsh(fem42 f64 CSR, k=100) scipy defaults (LM, tol 0 → 1e-7, b=8): "
+          f"wall {wall:.3f} s incl. the operator build and the copy back, max rel "
+          f"err (ARPACK head 90) {err:.3e}, max ‖A·v − λ·v‖ {resid:.3e} "
+          f"(λmax {w[-1]:.6f}), route: auto → the packed kernel ({routes}); "
+          f"return_eigenvectors=False: wall {wall2:.3f} s, order ascending |λ| "
+          f"({w2[0]:.6f} .. {w2[-1]:.6f}), max rel err {err2:.3e}  [{card}]")
+
+
+def phase_eig_backends(op32, head, lap_cfg, card: str, nx: int = 512):
+    """Phase 20: phase 4's lap2d_512_k50_b16 and phase 5's fem42_k100_b8
+    with each eig backend, each held to its solve's gate; the seconds of a
+    factorization (the Timer's "eig_poll" and "eig" sections, the worker's
+    polls and the serial final one, over their count)."""
+    import torch
+
+    import rbl_tpu_torch as rt
+    from rbl_tpu_torch import native
+    from rbl_tpu_torch.ops.eig import eig_banded_host
+    from rbl_tpu_torch.utils.profiling import Timer
+
+    t0 = time.perf_counter()
+    native.build()
+    print(f"host library (csrc/host/*.cpp, g++) built in {time.perf_counter() - t0:.2f} s")
+    warm = np.random.default_rng(0).standard_normal((9, 64))
+    for bk in ("scipy", "native", "device"):
+        eig_banded_host(warm, backend=bk, device=op32.device)
+    lap = rt.Laplacian2D(nx, nx, dtype=torch.float32, device=op32.device)
+    for bk in ("banded_host", "native", "device"):
+        rows = []
+        for label in (f"lap2d {nx}² k=50 b=16", "fem42 k=100 b=8"):
+            timer = Timer()
+            if label.startswith("lap"):
+                t0 = time.perf_counter()
+                res = rt.rbl(lap, 50, cfg=lap_cfg.replace(eig_backend=bk, seed=1),
+                             timer=timer)
+                sync(op32.device)
+                wall = time.perf_counter() - t0
+                err = laplacian_check(res.eigenvalues, nx)
+                if not err < 0.025:
+                    raise AssertionError(f"lap2d eig_backend={bk}: eigenvalues off "
+                                         f"by {err:.3f}")
+            else:
+                res, wall, err = fem_solve(op32, 100, 8, head, timer=timer,
+                                           label=f"fem42 eig_backend={bk}",
+                                           eig_backend=bk)
+            polls = timer.counts["eig_poll"] + timer.counts["eig"]
+            secs = timer.times["eig_poll"] + timer.times["eig"]
+            rows.append(f"{label}: wall {wall:.3f} s, max rel err {err:.3e}, "
+                        f"kryl_dim {res.kryl_dim}, {polls} factorizations at "
+                        f"{secs / max(polls, 1) * 1e3:.2f} ms each, "
+                        f"host wait on polls {timer.times['eig_wait']:.3f} s")
+        print(f"eig_backend={bk}: " + "; ".join(rows) + f"  [{card}]")
+
+
+def phase_scipy_pencil_svd(card: str, device: str = "cuda", small_nx: int = 16,
+                           m: int = 20_000, n: int = 2_000):
+    """Phase 21: eigsh(K, 8, M=M, sigma=0) on phase 17's fem3d-16 against
+    scipy's factorized eigsh within 1e-8, preconditioned by the
+    smoothed-aggregation AMG that eigsh's auto route builds for this
+    operand (n = 13,872 ≥ 4,000, σ at the bottom), built once here and
+    passed as ``inner_psolve`` so that its levels can be printed;
+    svds(B, k=10) and svds(B, k=10, which="SM") on phases 15's and 18's
+    dense factors against rbl_svd's values within 1e-8, ascending."""
+    import scipy.sparse as sp
+    import scipy.sparse.linalg as spla
+    import torch
+
+    import rbl_tpu_torch as rt
+    from rbl_tpu_torch.utils.fem import fem_elasticity_3d, lumped_mass
+
+    K = fem_elasticity_3d(small_nx)
+    mass = lumped_mass(small_nx)
+    M = sp.diags(mass)
+    cfg = rt.RBLConfig(device=device)  # scipy's call, on the card by default
+    t0 = time.perf_counter()
+    ref = np.sort(spla.eigsh(K, 8, M=M, sigma=0.0, which="LM",
+                             return_eigenvectors=False))
+    eigsh_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    amg = rt.AssembledMultigrid.smoothed_aggregation(K, dtype=torch.float64,
+                                                     device=device)
+    setup_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    w, X = rt.eigsh(K, 8, M=M, sigma=0.0, cfg=cfg, inner_psolve=amg.psolve)
+    wall = time.perf_counter() - t0
+    err = float(np.max(np.abs(w - ref) / ref))
+    resid = float(np.linalg.norm(K @ X - (mass[:, None] * X) * w, axis=0).max())
+    orth = float(np.abs(X.T @ (mass[:, None] * X) - np.eye(8)).max())
+    if not (err < 1e-8 and np.all(np.diff(w) >= 0) and orth < 1e-8):
+        raise AssertionError(f"eigsh(K, 8, M, sigma=0) fem3d-16: max rel err "
+                             f"{err:.3e} against scipy, max |XᵀMX − I| {orth:.3e}")
+    print(f"eigsh(fem3d-16 K, 8, M=lumped, sigma=0) (SA AMG, {amg.report()}, "
+          f"set up in {setup_s:.3f} s): wall {wall:.3f} s, "
+          f"max rel err against scipy's factorized eigsh {err:.3e} (scipy "
+          f"{eigsh_s:.2f} s on the host), max ‖K·x − λ·M·x‖ {resid:.3e}, max "
+          f"|XᵀMX − I| {orth:.3e}  [{card}]")
+    del amg
+
+    for which, seed, s in (("LM", 15, 0.9 ** torch.arange(
+            n, dtype=torch.float64, device=device)), ("SM", 18, sm_spectrum(n, device))):
+        B = dense_factor(seed, s, m, device)
+        Bh = B.cpu().numpy()
+        t0 = time.perf_counter()
+        U, sv, Vh = rt.svds(Bh, k=10, which=which, cfg=cfg)
+        wall = time.perf_counter() - t0
+        res = rt.rbl_svd(B, 10, 8, cfg=cfg.replace(tol=1e-10), which=which)
+        want = np.sort(res.s)
+        err = rel_diff(sv, want)
+        back = float(np.abs(Bh @ Vh.T - U * sv).max())
+        if not (np.all(np.diff(sv) >= 0) and err < 1e-8 and back < 1e-8
+                and U.shape == (m, 10) and Vh.shape == (10, n)):
+            raise AssertionError(f"svds(B, 10, which={which!r}): max rel err "
+                                 f"{err:.3e} against rbl_svd, max |B·V − U·s| "
+                                 f"{back:.3e}")
+        print(f"svds(dense {m}×{n} of phase {seed}, k=10, which={which!r}): wall "
+              f"{wall:.3f} s incl. the copies, s ascending {sv[0]:.6f} .. "
+              f"{sv[-1]:.6f}, max rel err against rbl_svd (tol 1e-10) {err:.3e}, "
+              f"max |B·V − U·diag(s)| {back:.3e}  [{card}]")
+        del B, Bh
+
+
+def phase_load_and_trace(op32, card: str, small_nx: int = 16):
+    """Phase 22: fem3d-16 through a .mtx file, the native reader against
+    scipy.io.mmread; one fem42 b=8 apply inside trace(), whose exported
+    trace must hold the packed kernel's device events by name."""
+    import json
+
+    import scipy.io
+    import scipy.sparse as sp
+
+    from rbl_tpu_torch.native import read_matrix_market
+    from rbl_tpu_torch.utils.fem import fem_elasticity_3d
+    from rbl_tpu_torch.utils.profiling import trace
+    from rbl_tpu_torch.utils.suitesparse import load_matrix
+
+    K = fem_elasticity_3d(small_nx)
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "fem16.mtx")
+        scipy.io.mmwrite(path, K, symmetry="symmetric")
+        mb = os.path.getsize(path) / 1e6
+        t0 = time.perf_counter()
+        An = read_matrix_market(path)
+        native_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        As = scipy.io.mmread(path)
+        scipy_s = time.perf_counter() - t0
+        L = load_matrix(path)
+        same = abs(An.tocsr() - sp.csr_matrix(As)).max()
+        off = abs(L - K).max() / abs(K).max()
+        if not (An.shape == As.shape and same == 0 and off < 1e-15):
+            raise AssertionError(f"fem3d-16 .mtx: native vs mmread differ by {same}, "
+                                 f"load_matrix vs the assembled K by {off:.3e}")
+        print(f"fem3d-16 .mtx ({mb:.1f} MB, {K.nnz} nonzeros, symmetric storage): "
+              f"native reader {native_s:.3f} s, scipy.io.mmread {scipy_s:.3f} s, "
+              f"equal entries; load_matrix against the assembled K {off:.1e}  [{card}]")
+
+        X = padded_x(op32, 8, seed=22)[: op32._n]
+        op32.apply(X)
+        sync(op32.device)
+        log = os.path.join(d, "trace")
+        with trace(log):
+            op32.apply(X)
+            sync(op32.device)
+        with open(os.path.join(log, "trace.json")) as f:
+            events = json.load(f)["traceEvents"]
+    kern = [e for e in events if e.get("cat") == "kernel"
+            and "bsr_spmm_kernel" in e.get("name", "")]
+    if not kern:
+        names = sorted({e.get("name", "")[:60] for e in events
+                        if e.get("cat") == "kernel"})
+        raise AssertionError(f"trace(): no bsr_spmm_kernel device event; kernels "
+                             f"seen: {names}")
+    print(f"trace() of one fem42 b=8 apply: {len(kern)} device event(s) of "
+          f"csrc/bsr_spmm.cu's kernel, {kern[0]['name'][:80]!r}, "
+          f"{kern[0].get('dur', 0):.1f} µs  [{card}]")
 
 
 def main() -> int:
@@ -1051,13 +1342,21 @@ def main() -> int:
     if (op64.bm, op64.unroll) != (op32.bm, op32.unroll):
         raise AssertionError(f"fem42's f64 plan ({op64.bm}, {op64.unroll}) differs "
                              f"from the f32 one ({op32.bm}, {op32.unroll})")
+    # (and at 90 columns, the widest chain the filters have run, for its bound)
     for entry in ("bsr_spmm_packed_resident", "bsr_spmm_packed"):
         for op in (op32, op64):
-            _, rel, ms, plain_ms, moved, ops = compare_entry(
-                entry, op, width, seed=width, timing=True)
-            print(f"{entry} fem42 b={width} {op.dtype} (the polish's width): rel "
-                  f"err {rel:.2e}, kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-                  f"bound {bound(moved, ops)['bound_ms']:.4f} ms  [{card}]")
+            for cols in (width, 90):
+                abs_err, rel, ms, plain_ms, moved, ops = compare_entry(
+                    entry, op, cols, seed=cols, timing=True)
+                lim = bound(moved, ops)
+                kernels[entry].setdefault("path_shapes", []).append(dict(
+                    phase=14, shape=f"fem42 plan ({op.bm}, {op.unroll}) "
+                    f"{str(op.dtype)[6:]} b={cols}", max_abs_err=abs_err, ms=ms,
+                    plain_ms=plain_ms, **lim))
+                print(f"{entry} fem42 b={cols} {op.dtype} (the polish's width "
+                      f"{width}, the filters' widest 90): rel err {rel:.2e}, kernel "
+                      f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+                      f"{lim['bound_ms']:.4f} ms ({lim['bound_ms'] / ms:.0%})  [{card}]")
     del op64
     # the library's time for the same product at the filter chains' widths
     for dtype in (torch.float32, torch.float64):
@@ -1081,7 +1380,7 @@ def main() -> int:
     del op32
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    bc, bv, nb, ncb, L = bsr._blocked_ell_from_scipy(A, 128, 128, np.float64)
+    bc, bv, _, ncb, L = bsr._blocked_ell_from_scipy(A, 128, 128, np.float64)
     bc = torch.from_numpy(bc.reshape(-1)).cuda()
     bv64 = torch.from_numpy(bv.reshape(-1, 128, 128)).cuda()
     del bv
@@ -1127,8 +1426,7 @@ def main() -> int:
                 Xl = X[: A.shape[0]]
                 lib_ms = time_ms(lambda: torch.sparse.mm(csr32, Xl))
                 lib = f", torch.sparse CSR {lib_ms:.4f} ms"
-                moved = nbytes(bc, bvd, X) + nb * 128 * b * 4
-                lim = bound(moved, 2 * bvd.numel() * b)
+                lim = bound(*sparse_need(bvd, A.shape[0], b))
                 if b == 8:
                     kernels["bsr_spmm"] = dict(
                         max_abs_err=abs_err, ms=ms, plain_ms=plain_ms,
@@ -1177,10 +1475,9 @@ def main() -> int:
             Xl = X[: A.shape[0]]
             lib_ms = time_ms(lambda: torch.sparse.mm(csr32, Xl))
             lib = f", torch.sparse CSR {lib_ms:.4f} ms"
-            moved = nbytes(*args) + op.rptr.shape[0] * op.bm * b * 4
             kernels["bsr_spmm_panel"] = dict(
                 max_abs_err=abs_err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                **bound(moved, 2 * op.vals.numel() * b))
+                **bound(*sparse_need(op.vals, A.shape[0], b)))
         print(f"bsr_spmm_panel (B4) fem42 b={b} {op.dtype}: rel err {rel:.2e}, "
               f"kernel {ms:.4f} ms, B1 on the same plan {b1_ms:.4f} ms, plain "
               f"{plain_ms:.4f} ms{lib}  [{card}]")
@@ -1354,7 +1651,7 @@ def main() -> int:
             raise AssertionError(f"the probe never launched {f.__name__}")
     print(f"probe launches {{{', '.join(f'{f.__name__}: {f.launches}' for f in probes)}}}"
           f", {len(rows)} sweep rows; phase 10 in {time.perf_counter() - t10:.1f} s")
-    del fem_op, fem_vals, fem_flat
+    del fem_vals, fem_flat  # fem_op serves phases 20 and 22
     torch.cuda.empty_cache()
 
     # --- 15. truncated SVD (no kernel of the table on this path) ------------
@@ -1377,6 +1674,14 @@ def main() -> int:
     t18 = time.perf_counter()
     phase_svd_sm(card)
     print(f"phase 18: {time.perf_counter() - t18:.1f} s")
+
+    # --- 19.-22. the scipy front door, the eig backends, loading, tracing --
+    long_phase(19, (), phase_eigsh, A, head, card)
+    if not any(by_phase[f.__name__]["19"] for f in packed):
+        raise AssertionError("phase 19 never launched the packed kernel")
+    long_phase(20, (B1,), phase_eig_backends, fem_op, head, cfg, card)
+    long_phase(21, (), phase_scipy_pencil_svd, card)
+    long_phase(22, (B1,), phase_load_and_trace, fem_op, card)
     print(f"chip_smoke total: {time.perf_counter() - t_start:.1f} s")
 
     record = {"kernels": [

@@ -18,6 +18,10 @@ Public surface:
   rbl_filtered             — Chebyshev-filtered sweep for LA / SA
   rbl_svd                  — truncated SVD on a matrix-free Gram operator
                              (which="LM" or "SM")
+  eigsh / svds             — scipy.sparse.linalg-compatible shims (numpy
+                             in and out, scipy's orders; the reference's
+                             ARPACK validation surface, benchmark.jl:42,
+                             images.jl:37-42)
   rbl_generalized / PencilInfo
                            — pencils A·x = λ·M·x: Chebyshev M^(-1/2)
                              transform, shift-invert modes normal /
@@ -44,6 +48,7 @@ Public surface:
                              layout (format="auto"|"dia"|"bsr"|"ell"|"hyb"|"coo")
 """
 
+from .compat import eigsh, svds
 from .config import RBLConfig
 from .ops.amg import AssembledMultigrid, block_jacobi_psolve, rigid_body_modes
 from .ops.generalized import (
@@ -91,6 +96,8 @@ __all__ = [
     "FilterInfo",
     "rbl_svd",
     "SVDResult",
+    "eigsh",
+    "svds",
     "rbl_generalized",
     "PencilInfo",
     "ShiftInvertOperator",

@@ -49,9 +49,13 @@ class RBLConfig:
         (CholeskyQR with 2/3 passes), or "auto": householder for f64
         compute, cholqr2 otherwise.
     eig_backend:
-        "banded_host": LAPACK banded eigensolver (scipy) on the host, the
-        reference's dsbev path (common.jl:28-48).  "native" and "device"
-        are not ported yet.
+        How each poll factorizes the projected T.  "banded_host": LAPACK
+        on the host through scipy, the reference's dsbev path
+        (common.jl:28-48), forming only the top-k pairs.  "native": the
+        in-repo C++ tred2/tql2 solver (``rbl_tpu_torch.native``, built
+        with g++ at first use; a failed build raises).  "device":
+        ``torch.linalg.eigh`` of the densified T in f64 on the solve's
+        device.  The last two factorize fully and keep the top k.
     seed:
         Seed of the ``torch.Generator`` that draws the random start block
         and every breakdown re-randomization.

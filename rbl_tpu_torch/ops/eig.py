@@ -3,8 +3,11 @@
 Reference path: LAPACK dsbev/ssbev on the *host*, even in the GPU solver
 (common.jl:28-48; called at RBL.jl:107, RBL_gpu.jl:187) — T is small, so
 shipping it to the CPU is the right call there and here.  The host
-functions are the JAX package's numpy/scipy code; the in-repo C++ solver
-("native") and the on-device eigh ("device") are not ported yet.
+functions are the JAX package's numpy/scipy code.  Three backends
+factorize T (``RBLConfig.eig_backend``): "banded_host", scipy's LAPACK;
+"native", the in-repo C++ tred2/tql2 solver (``rbl_tpu_torch.native``);
+"device", ``torch.linalg.eigh`` of the densified T in f64 on the solve's
+device.
 
 Ritz selection keeps the k largest by |λ| (reference sort_eig_abs,
 common.jl:50-54); convergence is the all-or-nothing residual bound
@@ -19,14 +22,33 @@ import scipy.linalg
 import torch
 
 
-def eig_banded_host(band: np.ndarray, backend: str = "scipy"):
-    """All eigenpairs of the banded symmetric T via LAPACK dsbevd (scipy).
-    Returns (w ascending, V) as numpy f64."""
-    if backend != "scipy":
-        raise NotImplementedError(
-            f"eig backend {backend!r} is not ported yet (ROADMAP.md "
-            "section A); use eig_backend='banded_host'"
-        )
+def eig_banded_host(band: np.ndarray, backend: str = "scipy", device=None):
+    """All eigenpairs of the banded symmetric T.  Returns (w ascending, V)
+    as numpy f64.
+
+    backend="scipy": LAPACK dsbevd via scipy (default).
+    backend="native": the in-repo C++ tred2/tql2 solver
+    (``csrc/host/band_eig.cpp``); raises if its library cannot be built.
+    backend="device": ``torch.linalg.eigh`` of the densified T in f64 on
+    ``device`` (None: the CUDA card), on a side stream of its own on a
+    CUDA device, so that its two copies neither wait for nor hold up the
+    work queued on the caller's stream; pays two transfers a call."""
+    if backend == "native":
+        from ..native import band_eigh
+
+        return band_eigh(band)
+    if backend == "device":
+        from ..config import resolve_device
+        from .band import band_to_dense
+
+        dev = resolve_device(device)
+        dense = band_to_dense(band.astype(np.float64))
+        if dev.type != "cuda":
+            w, V = eigh_device(torch.as_tensor(dense, device=dev))
+            return w.numpy(), V.numpy()
+        with torch.cuda.stream(torch.cuda.Stream(device=dev)):
+            w, V = eigh_device(torch.as_tensor(dense, device=dev))
+            return w.cpu().numpy(), V.cpu().numpy()
     w, V = scipy.linalg.eig_banded(band.astype(np.float64), lower=True)
     return w, V
 
@@ -112,6 +134,11 @@ def eig_banded_topk_dense(band: np.ndarray, k: int):
     V = np.concatenate([p[1] for p in parts], axis=1)
     order = np.argsort(np.abs(w))
     return w[order], V[:, order]
+
+
+def eigh_device(T_dense: torch.Tensor):
+    """Dense symmetric eigensolve of T on its own device (ascending)."""
+    return torch.linalg.eigh(T_dense)
 
 
 def sort_eig_abs(w, V, k: int):

@@ -52,6 +52,7 @@ from __future__ import annotations
 import concurrent.futures
 import dataclasses
 import os
+import time
 from collections import deque
 from typing import Optional
 
@@ -62,6 +63,7 @@ from ..config import RBLConfig
 from ..ops.band import BlockTridiagonalT
 from ..ops.contract import gram
 from ..ops.eig import (
+    eig_banded_host,
     eig_banded_topk_dense,
     eig_banded_values_topk,
     ritz_residual_bounds,
@@ -89,26 +91,44 @@ class SweepAborted(RuntimeError):
     actually killing anything."""
 
 
-def _poll_task(snapshot, k, chain, tol, force_full):
+def _factorize(band, k, backend, device):
+    """The k largest-|λ| eigenpairs of T, ascending by |λ|: "scipy" forms
+    only those (``eig_banded_topk_dense``), "native" and "device" factorize
+    fully (``eig_banded_host`` on ``device``) and keep the top k."""
+    if backend == "scipy":
+        return eig_banded_topk_dense(band, k)
+    return sort_eig_abs(*eig_banded_host(band, backend=backend, device=device), k)
+
+
+def _poll_task(snapshot, k, backend, device, chain, tol, force_full):
     """One convergence poll, run on the eig worker thread: a values-only
     screen (dsbevd eigenvalues path) gates the full factorization — the
     residual bounds need eigenvectors, but they cannot pass while the top-k
     Ritz values are still moving by more than tol·|λ|max between polls.
 
+    ``backend`` and ``device`` are the factorization's (``_factorize``).
+
     ``chain`` carries the previous poll's screen between tasks ON the
     worker thread (single worker → sequential), so the screen-to-screen
     comparisons feeding both the stability gate and the solver's selective
     trigger are deterministic.
-    Returns (screen, previous poll's screen, (w, V) or None)."""
+    Returns (screen, previous poll's screen, (w, V) or None, seconds of the
+    factorization or None)."""
     w_prev = chain.get("w")
+
+    def factorize():
+        t0 = time.perf_counter()
+        full = _factorize(snapshot, k, backend, device)
+        return full, time.perf_counter() - t0
+
     if force_full:
         # the factorization runs regardless — its eigenvalues subsume the
         # values-only screen, so skip it
-        full = eig_banded_topk_dense(snapshot, k)
+        full, secs = factorize()
         w_all = full[0]
         idx = np.argsort(np.abs(w_all))[-min(k, len(w_all)):]
         chain["w"] = w_all[idx]
-        return w_all[idx], w_prev, full
+        return w_all[idx], w_prev, full, secs
     w_scr = eig_banded_values_topk(snapshot, k)
     stable = (
         w_prev is not None
@@ -116,11 +136,11 @@ def _poll_task(snapshot, k, chain, tol, force_full):
         and np.max(np.abs(w_scr - w_prev))
         <= tol * max(np.abs(w_scr).max(), np.finfo(np.float64).tiny)
     )
-    full = None
+    full = secs = None
     if stable:
-        full = eig_banded_topk_dense(snapshot, k)
+        full, secs = factorize()
     chain["w"] = w_scr
-    return w_scr, w_prev, full
+    return w_scr, w_prev, full, secs
 
 
 # --- poll schedule arithmetic -------------------------------------------
@@ -500,11 +520,7 @@ def lanczos_iteration(
     cdt = cfg.compute_dtype
     dev = Qi.device
     qr_method = cfg.resolved_qr_method()
-    if cfg.eig_backend != "banded_host":
-        raise NotImplementedError(
-            f"eig_backend={cfg.eig_backend!r} is not ported yet (ROADMAP.md "
-            "section A); use 'banded_host'"
-        )
+    eig_bk = {"native": "native", "device": "device"}.get(cfg.eig_backend, "scipy")
     max_kryl = min(cfg.max_kryl_dim, ((n + b - 1) // b) * b)
 
     T = BlockTridiagonalT(b, max_cols=max_kryl + b)
@@ -793,7 +809,9 @@ def lanczos_iteration(
         if pending is None or (not block and not pending["future"].done()):
             return
         with timer.section("eig_wait"):
-            w_scr, w_old, full = pending["future"].result()
+            w_scr, w_old, full, secs = pending["future"].result()
+        if secs is not None:
+            timer.record("eig_poll", secs)  # the factorization, on the worker
         if not selective and len(w_scr) > 1:
             # Immediate tier: at extreme dominance the ghost of the top
             # pair reaches O(1) within ~10 iterations of its convergence —
@@ -1192,7 +1210,7 @@ def lanczos_iteration(
                     B_snap, Qp = B_hist[j], None
                 pending = dict(
                     future=executor.submit(
-                        _poll_task, snapshot, k, poll_chain, cfg.tol,
+                        _poll_task, snapshot, k, eig_bk, dev, poll_chain, cfg.tol,
                         poll_chain.get("w") is None or (force_poll and j == i),
                     ),
                     i_poll=j,
@@ -1297,7 +1315,7 @@ def lanczos_iteration(
         i_final = store.ncols // b
         if final_panels != i_final or w_sel is None:
             with timer.section("eig"):
-                w_sel, V_sel = eig_banded_topk_dense(T.view(store.ncols), k)
+                w_sel, V_sel = _factorize(T.view(store.ncols), k, eig_bk, dev)
         bounds = ritz_residual_bounds(np.asarray(B_last), V_sel, b)
         i = i_final
 

@@ -131,3 +131,13 @@ def fem_elasticity_3d(
         A = A[keep][:, keep].tocsr()
     A.sum_duplicates()
     return A
+
+
+def lumped_mass(nx: int) -> np.ndarray:
+    """The lumped (diagonal) mass of fem_elasticity_3d(nx): density 1, h = 1,
+    each hex's volume shared equally by its 8 nodes, the z = 0 face clamped
+    away, repeated over the 3 dofs of a node."""
+    ax = np.arange(nx + 1)
+    cells = np.where((ax > 0) & (ax < nx), 2.0, 1.0)  # hexes along an axis
+    node = cells[1:, None, None] * cells[None, :, None] * cells[None, None, :] / 8.0
+    return np.repeat(node.ravel(), 3)

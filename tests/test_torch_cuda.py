@@ -347,3 +347,48 @@ def test_cuda_amg_cycle_matches_the_cpu_cycle(dtype, build):
     got = card.psolve(X.cuda()).cpu().numpy()
     want = host.psolve(X).numpy()
     assert rel_err(got, want) < (1e-5 if dtype == torch.float32 else 1e-12)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("backend", ["banded_host", "native", "device"])
+def test_eig_backends_on_the_card(backend):
+    """A solve on the card with each eig backend ("device" factorizes on a
+    side stream of the poll worker) gives the CPU solve's eigenvalues to
+    1e-10 (f64)."""
+    _needs_card()
+    from rbl_tpu_torch.utils.profiling import Timer
+
+    A = random_sym(2000, 0.005, seed=3)
+    cfg = rtt.RBLConfig(block_size=4, tol=1e-10, eig_backend=backend)
+    timer = Timer()
+    res = rtt.rbl(A, 8, cfg=cfg, timer=timer)
+    ref = rtt.rbl(A, 8, cfg=cfg.replace(device="cpu", eig_backend="banded_host"))
+    assert res.converged and res.eigenvectors.device.type == "cuda"
+    assert rel_err(res.eigenvalues, ref.eigenvalues) < 1e-10
+    assert timer.counts["eig_poll"] + timer.counts["eig"] >= 1
+
+
+@pytest.mark.gpu
+def test_eigsh_and_svds_on_the_card_return_numpy():
+    """The scipy front door places the solve on the card by default and
+    returns numpy, equal to the CPU solve's values to 1e-9."""
+    _needs_card()
+    import scipy.sparse.linalg as sla
+
+    import scipy.sparse as sp
+
+    # nonsingular: the diagonal keeps every eigenvalue away from σ = 0
+    A = (random_sym(600, 0.01, seed=4) + sp.diags(np.linspace(1.0, 4.0, 600))).tocsr()
+    w, V = rtt.eigsh(A, k=5, tol=1e-10)
+    assert isinstance(w, np.ndarray) and isinstance(V, np.ndarray)
+    wc = rtt.eigsh(A, k=5, tol=1e-10, cfg=rtt.RBLConfig(device="cpu"),
+                   return_eigenvectors=False)
+    assert rel_err(w, np.sort(wc)) < 1e-9
+    assert np.linalg.norm(A @ V - V * w, axis=0).max() < 1e-8
+    w_sm = rtt.eigsh(A, k=3, sigma=0.0, tol=1e-10, return_eigenvectors=False)
+    ref = sla.eigsh(A, k=3, sigma=0.0, return_eigenvectors=False)
+    assert rel_err(np.sort(w_sm), np.sort(ref)) < 1e-8
+    B = np.random.default_rng(5).standard_normal((300, 120))
+    U, s, Vh = rtt.svds(B, k=4)
+    assert isinstance(U, np.ndarray) and np.all(np.diff(s) >= 0)
+    assert rel_err(s, np.sort(np.linalg.svd(B, compute_uv=False))[-4:]) < 1e-9

@@ -199,8 +199,12 @@ def test_eig_host_functions_match_jax():
     for tol in (1e-12, 1e3):
         assert (teig.check_convergence(Bi, Vs, 3, k, tol)
                 == jeig.check_convergence(Bi, Vsj, 3, k, tol))
-    with pytest.raises(NotImplementedError):
-        teig.eig_banded_host(band, backend="native")
+    # the "native" and "device" backends factorize as the JAX package's do
+    for backend in ("native", "device"):
+        wb, Vb = teig.eig_banded_host(band, backend=backend, device="cpu")
+        wbj, Vbj = jeig.eig_banded_host(band, backend=backend)
+        assert rel_err(wb, wbj) < TOL and rel_err(wb, wj) < TOL
+        assert rel_err(np.abs(Vb), np.abs(np.asarray(Vbj))) < 1e-10
 
 
 def test_spectral_norm_bound_brackets_the_norm():
