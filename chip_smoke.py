@@ -25,12 +25,19 @@ a user calls, and checks the answers:
   6. the blocked-ELL (B3) and panel (B4) kernels against their plain
      versions, f32 (1e-5) and f64 (1e-12): B3 on fem42's blocked-ELL at
      bm = 128 (b = 8, 16), B4 on fem42's panel layout of the auto plan
-     (b = 8), both on the ragged matrix at b = 5, 8, 16, 40; per-apply
-     times beside the plain version, torch.sparse CSR and the bound (B3
-     at b = 16 too, recorded as its row's b16_* keys); the register
-     block and ring of csrc/bsr_spmm.cu for each timed shape.  B3's entry
-     point, which no solve calls, checks phase 5's fem42 Ritz vectors
-     (A·V against torch.sparse CSR, and the true residuals);
+     (b = 8, f32 and f64), both on the ragged matrix at b = 5, 8, 16, 40,
+     and B4 on a gappy ragged matrix at bk 32/64/128, b = 1, 8, 33, with
+     block-rows given no chunk (hcount 0) and rows deeper than its ring;
+     per-apply times beside the plain version, torch.sparse CSR and the
+     bound (B3 at b = 16 too, recorded as its row's b16_* keys; B4 beside
+     B1 on the same plan and, in f32, B7 over the same bytes, its f64
+     numbers as f64_* keys); the register block and ring of
+     csrc/bsr_spmm.cu and the plan of csrc/bsr_spmm_panel.cu for each
+     timed shape; then B4 on fem42 at bk 32, 64 and 128 (each on
+     pick_tile_plan's plan, f32, b = 8: stored MB, fill, B4, B1, CSR,
+     share of the bound; the row's bk_sweep key).  B3's entry point,
+     which no solve calls, checks phase 5's fem42 Ritz vectors (A·V
+     against torch.sparse CSR, and the true residuals);
   7. rbl on fem42 through BlockSparseOperator.from_scipy(..., panel=True)
      (k = 100, b = 8, f32), held to the ARPACK head, with B4's launches;
   8. the same fem42 solve through format="dia", "ell", "hyb", "coo" and
@@ -1217,6 +1224,203 @@ def phase_load_and_trace(op32, card: str, small_nx: int = 16):
           f"{kern[0].get('dur', 0):.1f} µs  [{card}]")
 
 
+def gappy_ragged():
+    """ragged_matrix with rows and columns 1024-1535 removed: block-rows with
+    no nonzero at every tile height up to 128."""
+    import scipy.sparse as sp
+
+    R = ragged_matrix()
+    keep = np.ones(R.shape[0])
+    keep[1024:1536] = 0.0
+    D = sp.diags(keep)
+    return (D @ R @ D).tocsr()
+
+
+def panel_calls(op, X, hcount=None):
+    """(kernel call, plain call) of B4 on the panels of ``op`` and X, with
+    ``op``'s chunk counts or ``hcount``."""
+    from rbl_tpu_torch.ops.spmm import bsr
+
+    args = (op.tile_cols, op.hcount if hcount is None else hcount, op.rptr,
+            op.vals, X)
+    kw = dict(bm=op.bm, bk=op.bk, unroll=op.unroll)
+    return (lambda: bsr.bsr_spmm_panel(*args, H=op.H, **kw),
+            lambda: bsr.bsr_spmm_panel_reference(*args, **kw))
+
+
+def tiles_of_panels(op):
+    """The panels of ``op`` repacked as B1's (T, bm, bk) tiles."""
+    T = op.tile_cols.shape[0]
+    return (op.vals.reshape(T // op.unroll, op.unroll, op.bk, op.bm)
+            .transpose(2, 3).reshape(T, op.bm, op.bk).contiguous())
+
+
+def b1_call(op, tiles, X):
+    """B1 (the resident packed entry point) on ``op``'s plan and X."""
+    from rbl_tpu_torch.ops.spmm import bsr
+
+    return lambda: bsr.bsr_spmm_packed_resident(
+        op.tile_cols, op.hcount, op.rptr, tiles, X, bm=op.bm, bk=op.bk, H=op.H,
+        unroll=op.unroll)
+
+
+def plan_text(p: dict) -> str:
+    return (f"{p['stages']} stages of kc {p['kc']}, R×C {p['R']}×{p['C']}, "
+            f"K-split {p['ksplit']}, {p['threads']} threads, {p['smem_bytes']} B")
+
+
+def check_panel_shapes(card: str):
+    """B4 against its plain version, f32 (1e-5) and f64 (1e-12), at the
+    shapes the ragged loop leaves out: bk 32 and 64 beside 128, b = 1 and
+    b = 33 (two column groups), block-rows that hold no nonzero given no
+    chunk at all (hcount 0), and block-rows with more chunks than the ring
+    has stages (the heavy row at U = 1)."""
+    import torch
+
+    from rbl_tpu_torch.ops.spmm import _kernels, bsr
+
+    R = gappy_ragged()
+    checked, deep = 0, []
+    for dtype in (torch.float32, torch.float64):
+        for bm, bk, U in ((64, 32, 4), (64, 64, 2), (16, 128, 1), (128, 64, 1),
+                          (100, 32, 1), (5, 64, 2)):
+            op = bsr.BlockSparseOperator.from_scipy(R, dtype=dtype, bm=bm, bk=bk,
+                                                    unroll=U, panel=True,
+                                                    device="cuda")
+            per_row = np.add.reduceat(np.diff(R.indptr), np.arange(0, R.shape[0], bm))
+            hc = op.hcount.clone()
+            hc[torch.from_numpy(per_row == 0).to(hc.device)] = 0
+            if not (hc == 0).any():
+                raise AssertionError(f"bm={bm}: no block-row without a chunk")
+            for b in (1, 8, 33):
+                plan = _kernels.panel_plan(bm, b, dtype, bk=bk)
+                X = padded_x(op, b, seed=b)
+                for h, note in ((None, ""), (hc, ", empty rows with hcount 0")):
+                    call, plain = panel_calls(op, X, h)
+                    check(f"bsr_spmm_panel gappy bm={bm} bk={bk} U={U} b={b}{note}",
+                          call, plain, dtype)
+                    checked += 1
+                if int(op.hcount.max()) > plan["stages"]:
+                    deep.append(f"bm={bm} bk={bk} U={U} b={b}: {int(op.hcount.max())} "
+                                f"chunks > {plan['stages']} stages")
+    if not deep:
+        raise AssertionError("no checked block-row had more chunks than the ring "
+                             "has stages")
+    print(f"bsr_spmm_panel (B4) on the gappy ragged matrix: {checked} checks within "
+          f"tolerance (bk 32/64/128, b 1/8/33, f32 and f64, with and without "
+          f"hcount-0 rows); deep rows: {'; '.join(deep[:4])}")
+
+
+def panel_fem42(A, csr32, kernels: dict, card: str):
+    """B4 on fem42's panel layout of the auto plan at b = 8, f32 and f64:
+    held to its plain version, then timed beside B1 on the same plan (the
+    panels repacked as tiles), B7 over the same bytes (f32), the plain
+    version and torch.sparse CSR; the plan of each timed shape."""
+    import torch
+
+    from rbl_tpu_torch.benchmarks import dma_stream_bench as tds
+    from rbl_tpu_torch.ops.spmm import _kernels, bsr
+    from rbl_tpu_torch.ops.spmm.operator import cast_operator
+
+    t0 = time.perf_counter()
+    pan64 = bsr.BlockSparseOperator.from_scipy(A, dtype=torch.float64, panel=True,
+                                               device="cuda")
+    print(f"fem42 panel operator (auto plan bm={pan64.bm}, unroll={pan64.unroll}, "
+          f"{pan64.vals.shape[0]} panels) built in {time.perf_counter() - t0:.1f} s")
+    b = 8
+    seed = torch.zeros((8, 128), dtype=torch.float32, device="cuda")
+    for op in (cast_operator(pan64, torch.float32), pan64):
+        dt = str(op.dtype)[6:]
+        X = padded_x(op, b, seed=b)
+        call, plain = panel_calls(op, X)
+        abs_err, rel = check(f"bsr_spmm_panel fem42 b={b}", call, plain, op.dtype)
+        tiles = tiles_of_panels(op)
+        b1 = b1_call(op, tiles, X)
+        csr = csr32 if op.dtype == torch.float32 else torch_csr(A, op.dtype)
+        Xl = X[: A.shape[0]]
+        lib = lambda: torch.sparse.mm(csr, Xl)
+        # in turns: B4, B1, B1, B4 (single calls, then back to back)
+        ms, b1_ms, b1_ms2, ms2 = (time_ms(f) for f in (call, b1, b1, call))
+        ms, b1_ms = min(ms, ms2), min(b1_ms, b1_ms2)
+        seq = {name: tds.kernel_ms(f) for name, f in (("B4", call), ("B1", b1))}
+        plain_ms, lib_ms = time_ms(plain), time_ms(lib)
+        lim = bound(*sparse_need(op.vals, A.shape[0], b))
+        plan = _kernels.panel_plan(op.bm, b, op.dtype, bk=op.bk)
+        mb = op.vals.numel() * op.vals.element_size() / 1e6
+        extra = ""
+        if op.dtype == torch.float32:
+            flat = op.vals.view(-1, 128)
+            CH = op.bm * op.unroll
+            S = flat.shape[0] // CH
+            b7 = lambda: tds.dma_stream_manual(flat, seed, S=S, CH=CH)
+            b7_ms = time_ms(b7)
+            seq["B7"] = tds.kernel_ms(b7)
+            extra = (f", B7 over the same {mb:.1f} MB {b7_ms:.4f} ms (B4 at "
+                     f"{b7_ms / ms:.0%} of its rate; back to back B4 "
+                     f"{seq['B4']:.4f}, B1 {seq['B1']:.4f}, B7 {seq['B7']:.4f} ms)")
+            kernels["bsr_spmm_panel"] = dict(
+                max_abs_err=abs_err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                **lim, b1_same_plan_ms=b1_ms, b7_same_bytes_ms=b7_ms,
+                back_to_back_ms=seq, plan=plan)
+        else:
+            kernels["bsr_spmm_panel"].update(
+                f64_max_abs_err=abs_err, f64_ms=ms, f64_plain_ms=plain_ms,
+                f64_library_ms=lib_ms, f64_bound_ms=lim["bound_ms"],
+                f64_b1_same_plan_ms=b1_ms, f64_back_to_back_ms=seq, f64_plan=plan)
+            extra = f", back to back B4 {seq['B4']:.4f}, B1 {seq['B1']:.4f} ms"
+        print(f"bsr_spmm_panel (B4) fem42 plan ({op.bm}, {op.unroll}) b={b} {dt}: rel "
+              f"err {rel:.2e}, kernel {ms:.4f} ms ({mb / ms:.0f} GB/s of panels), "
+              f"B1 on the same plan {b1_ms:.4f} ms, plain {plain_ms:.4f} ms, "
+              f"torch.sparse CSR {lib_ms:.4f} ms, bound {lim['bound_ms']:.4f} ms "
+              f"({lim['bound_ms'] / ms:.1%}){extra}; plan {plan_text(plan)}  [{card}]")
+        del tiles, X, csr
+    del pan64
+    torch.cuda.empty_cache()
+
+
+def panel_bk_sweep(A, csr32, card: str):
+    """B4 on fem42 at bk 32, 64 and 128, each on pick_tile_plan(A, bk)'s
+    plan, f32, b = 8: the stored panel MB, the fill, B4, B1 on the same
+    plan, torch.sparse CSR and the share of the nonzeros' bound; returns
+    the rows."""
+    import torch
+
+    from rbl_tpu_torch.ops.spmm import _kernels, bsr
+
+    rows = []
+    b = 8
+    for bk in (32, 64, 128):
+        t0 = time.perf_counter()
+        bm, U = bsr.pick_tile_plan(A, bk=bk)
+        op = bsr.BlockSparseOperator.from_scipy(A, dtype=torch.float32, bm=bm, bk=bk,
+                                                unroll=U, panel=True, device="cuda")
+        pack_s = time.perf_counter() - t0
+        X = padded_x(op, b, seed=b)
+        call, plain = panel_calls(op, X)
+        check(f"bsr_spmm_panel fem42 bk={bk} b={b}", call, plain, op.dtype)
+        tiles = tiles_of_panels(op)
+        b1 = b1_call(op, tiles, X)
+        ms, b1_ms, b1_ms2, ms2 = (time_ms(f) for f in (call, b1, b1, call))
+        Xl = X[: A.shape[0]]
+        lib_ms = time_ms(lambda: torch.sparse.mm(csr32, Xl))
+        lim = bound(*sparse_need(op.vals, A.shape[0], b))
+        stored = op.vals.numel()
+        row = dict(bk=bk, bm=bm, unroll=U, stored_mb=stored * 4 / 1e6,
+                   fill=A.nnz / stored, ms=min(ms, ms2), b1_ms=min(b1_ms, b1_ms2),
+                   library_ms=lib_ms, bound_ms=lim["bound_ms"],
+                   bound_share=lim["bound_ms"] / min(ms, ms2), pack_s=pack_s,
+                   plan=_kernels.panel_plan(bm, b, torch.float32, bk=bk))
+        rows.append(row)
+        print(f"bk sweep fem42 bk={bk}: plan ({bm}, {U}), {row['stored_mb']:.1f} MB of "
+              f"panels, fill {row['fill']:.3f}, B4 {row['ms']:.4f} ms, B1 "
+              f"{row['b1_ms']:.4f} ms, torch.sparse CSR {lib_ms:.4f} ms, "
+              f"{row['bound_share']:.1%} of the {lim['bound_ms']:.4f} ms bound; "
+              f"packed in {pack_s:.1f} s; plan {plan_text(row['plan'])}  [{card}]")
+        del op, X, tiles
+        torch.cuda.empty_cache()
+    return rows
+
+
 def main() -> int:
     import torch
 
@@ -1227,7 +1431,6 @@ def main() -> int:
     import rbl_tpu_torch as rt
     from rbl_tpu_torch.benchmarks import dma_stream_bench as tds
     from rbl_tpu_torch.ops.spmm import _kernels, bsr
-    from rbl_tpu_torch.ops.spmm.operator import cast_operator
     from rbl_tpu_torch.utils.fem import fem_elasticity_3d
 
     torch.set_float32_matmul_precision("highest")  # plain versions in full FP32
@@ -1450,40 +1653,7 @@ def main() -> int:
               f"{p['smem_bytes']}, {p['threads']})"
               for name, bm, b, dt in plans for p in [_kernels.spmm_plan(bm, b, dt)]))
     torch.cuda.empty_cache()
-    t0 = time.perf_counter()
-    pan64 = bsr.BlockSparseOperator.from_scipy(A, dtype=torch.float64, panel=True,
-                                               device="cuda")
-    print(f"fem42 panel operator (auto plan bm={pan64.bm}, unroll={pan64.unroll}, "
-          f"{pan64.vals.shape[0]} panels) built in {time.perf_counter() - t0:.1f} s")
-    for op in (cast_operator(pan64, torch.float32), pan64):
-        b = 8
-        X = padded_x(op, b, seed=b)
-        args = (op.tile_cols, op.hcount, op.rptr, op.vals, X)
-        kw = dict(bm=op.bm, bk=op.bk, unroll=op.unroll)
-        call = lambda: bsr.bsr_spmm_panel(*args, H=op.H, **kw)
-        plain = lambda: bsr.bsr_spmm_panel_reference(*args, **kw)
-        abs_err, rel = check(f"bsr_spmm_panel fem42 b={b}", call, plain, op.dtype)
-        # B1 on the same plan, repacked from the panels, for the comparison
-        T = op.tile_cols.shape[0]
-        tiles = (op.vals.reshape(T // op.unroll, op.unroll, op.bk, op.bm)
-                 .transpose(2, 3).reshape(T, op.bm, op.bk).contiguous())
-        b1 = lambda: bsr.bsr_spmm_packed_resident(
-            op.tile_cols, op.hcount, op.rptr, tiles, X, H=op.H, **kw)
-        ms, plain_ms, b1_ms = time_ms(call), time_ms(plain), time_ms(b1)
-        lib = ""
-        if op.dtype == torch.float32:
-            Xl = X[: A.shape[0]]
-            lib_ms = time_ms(lambda: torch.sparse.mm(csr32, Xl))
-            lib = f", torch.sparse CSR {lib_ms:.4f} ms"
-            kernels["bsr_spmm_panel"] = dict(
-                max_abs_err=abs_err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                **bound(*sparse_need(op.vals, A.shape[0], b)))
-        print(f"bsr_spmm_panel (B4) fem42 b={b} {op.dtype}: rel err {rel:.2e}, "
-              f"kernel {ms:.4f} ms, B1 on the same plan {b1_ms:.4f} ms, plain "
-              f"{plain_ms:.4f} ms{lib}  [{card}]")
-        del tiles
-    del pan64
-    torch.cuda.empty_cache()
+    panel_fem42(A, csr32, kernels, card)
     for dtype in (torch.float32, torch.float64):
         for bm, U in ((16, 4), (128, 8)):
             bcr, bvr, nbr, ncbr, Lr = bsr._blocked_ell_from_scipy(R, bm, 128, np.float64)
@@ -1508,7 +1678,10 @@ def main() -> int:
                               *args, bm=bm, bk=128, unroll=U, gather=gather),
                           dtype)
     print(f"ragged n={R.shape[0]}: B3 and B4 (both gathers), f32 and f64, bm 16/128, "
-          f"b 5/8/16/40 within tolerance; phase 6 in {time.perf_counter() - t6:.1f} s")
+          f"b 5/8/16/40 within tolerance")
+    check_panel_shapes(card)
+    kernels["bsr_spmm_panel"]["bk_sweep"] = panel_bk_sweep(A, csr32, card)
+    print(f"phase 6 in {time.perf_counter() - t6:.1f} s")
 
     # --- 7. a solve through B4 ----------------------------------------------
     pan32 = bsr.BlockSparseOperator.from_scipy(A, dtype=torch.float32, panel=True,

@@ -37,6 +37,7 @@ _ENTRIES = {
     "rbl_bsr_spmm_packed_plan_f32": ("bsr_spmm", [_p] * 6 + [_i] * 7 + [_p]),
     **{f"rbl_bsr_spmm_panel_{s}": ("bsr_spmm_panel", [_p] * 6 + [_i] * 5 + [_p])
        for s in ("f32", "f64")},
+    "rbl_bsr_spmm_panel_plan": ("bsr_spmm_panel", [_i] * 4 + [_p]),
     "rbl_dma_stream_f32": ("dma_stream", [_p] * 4 + [_i] * 2 + [_p]),
     "rbl_dma_stream_dot_f32": ("dma_stream", [_p] * 5 + [_i] * 4 + [_p]),
     "rbl_dma_stream_manual_f32": ("dma_stream", [_p] * 4 + [_i] * 2 + [_p]),
@@ -122,6 +123,21 @@ def spmm_plan(bm: int, b: int, dtype, bk: int = 128) -> dict:
     if err != 0:
         raise ValueError(f"no bsr_spmm plan for bm={bm}, bk={bk}, b={b}, {dtype}")
     return dict(zip(("R", "C", "stages", "smem_bytes", "threads"), out))
+
+
+def panel_plan(bm: int, b: int, dtype, bk: int = 128) -> dict:
+    """The plan that ``csrc/bsr_spmm_panel.cu`` launches for (bm, bk)
+    tiles, ``b`` columns and ``dtype``: ring stages, panel rows a stage
+    (kc), rows R and columns C a thread, K-split groups, threads a CTA and
+    dynamic shared bytes.  Raises for a shape the kernel refuses."""
+    out = (ctypes.c_int * 7)()
+    err = _libraries()["bsr_spmm_panel"].rbl_bsr_spmm_panel_plan(
+        bm, bk, b, torch.empty((), dtype=dtype).element_size(), out)
+    if err != 0:
+        raise ValueError(f"no bsr_spmm_panel plan for bm={bm}, bk={bk}, b={b}, "
+                         f"{dtype}")
+    return dict(zip(("stages", "kc", "R", "C", "ksplit", "threads",
+                     "smem_bytes"), out))
 
 
 def launch_bsr_spmm_packed(tile_cols, hcount, rptr, vals, X, *, bm: int,

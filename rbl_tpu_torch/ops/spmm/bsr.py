@@ -9,7 +9,9 @@ CUDA kernel on a CUDA tensor and its plain PyTorch version on a CPU tensor:
   ``csrc/bsr_spmm.cu``;
 - blocked-ELL (B3): ``bsr_spmm`` — the same kernel with a fixed L tiles
   per block-row;
-- panel (B4): ``bsr_spmm_panel`` — ``csrc/bsr_spmm_panel.cu``.
+- panel (B4): ``bsr_spmm_panel`` — ``csrc/bsr_spmm_panel.cu``, persistent
+  CTAs that stream each panel slice and its tile's X rows into a ring of
+  shared memory by bulk asynchronous copies.
 
 Packed layout: A is cut into (bm, bk) tiles and only nonzero tiles are
 stored.  Block-row i owns the tiles [rptr[i]·U, (rptr[i] + hcount[i])·U)
@@ -32,8 +34,9 @@ from .operator import LinearOperator
 # The JAX package kept X resident in the TPU's on-chip VMEM up to this
 # size and streamed it tile by tile above it; its panel layout took only
 # a resident X.  The rules are kept for parity, so that the entry points
-# a user reaches stay the same; on the card the packed entry points launch
-# the same kernel.
+# a user reaches stay the same.  On the card the packed entry points
+# launch the same kernel, and the panel kernel copies each tile's X rows
+# into shared memory beside its panel rows, whatever X's size.
 _RESIDENT_X_BYTES = 8 * 2**20
 
 # Time model of the packed CUDA kernel: an apply streams the stored tile
@@ -388,6 +391,9 @@ def bsr_spmm_panel(tile_cols, hcount, rptr, vals_t, X, *, bm: int, bk: int,
             gather=gather, out_dtype=out_dtype,
         )
     _check_cuda(vals_t, bm, bk, "bsr_spmm_panel")
+    if X.data_ptr() % 16:
+        raise ValueError("the panel kernel copies X in 16-byte units: its "
+                         "storage must be 16-byte aligned")
     from ._kernels import launch_bsr_spmm_panel
 
     Y = launch_bsr_spmm_panel(tile_cols, hcount, rptr, vals_t, X, bm=bm,
@@ -456,8 +462,9 @@ class BlockSparseOperator(LinearOperator):
         if self.panel:
             if xbytes > _RESIDENT_X_BYTES:
                 raise ValueError(
-                    "panel layout requires the RHS resident in VMEM "
-                    f"({xbytes} bytes > {_RESIDENT_X_BYTES}) — rebuild "
+                    "the panel layout takes an X of at most "
+                    f"{_RESIDENT_X_BYTES} bytes, the JAX package's limit, "
+                    f"kept for parity (this X: {xbytes} bytes) — rebuild "
                     "with panel=False for this block width"
                 )
             Y = bsr_spmm_panel(*args, gather=self.panel_gather, **kw)

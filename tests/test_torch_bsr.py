@@ -281,3 +281,62 @@ def test_panel_keeps_the_resident_x_limit_and_cpu_launch_count(monkeypatch):
         tbsr.bsr_spmm_panel(op.tile_cols, op.hcount, op.rptr, op.vals,
                             torch.zeros((384, 2)), bm=16, bk=128, H=op.H,
                             unroll=4, gather="stack")
+
+
+# ---- the panel layout at narrower tiles (bk 32 and 64) ---------------------
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("bm,U", PANEL_CASES)
+@pytest.mark.parametrize("bk", [32, 64])
+def test_panel_narrow_tiles_match_jax_operator(bk, bm, U, dtype):
+    """The panel operator at bk 32 and 64, as
+    test_panel_reference_matches_jax_operator holds it at bk 128: the port's
+    apply on the JAX operator's own arrays (built with the same bk and
+    panel=True) against the JAX operator in Pallas interpret mode, both
+    gathers, and the port's own from_scipy arrays equal the JAX package's."""
+    A = random_sym(600, 0.03, seed=5)
+    jop = jbsr.BlockSparseOperator.from_scipy(
+        A, dtype=dtype, bm=bm, bk=bk, unroll=U, panel=True, interpret=True)
+    top = bsr_from_jax(jop)
+    assert top.panel and top.bk == bk
+    assert tuple(top.vals.shape) == (jop.vals.shape[0], U * bk, bm)
+    X = np.random.default_rng(11).standard_normal((600, 8)).astype(dtype)
+    want = np.asarray(jop.apply(jnp.asarray(X)))
+    got = top.apply(torch.from_numpy(X)).numpy()
+    assert rel_err(got, want) < TOL[dtype]
+    concat = dataclasses.replace(top, panel_gather="concat")
+    np.testing.assert_array_equal(concat.apply(torch.from_numpy(X)).numpy(), got)
+    own = tbsr.BlockSparseOperator.from_scipy(
+        A, dtype=torch.from_numpy(np.zeros(0, dtype)).dtype, bm=bm, bk=bk,
+        unroll=U, panel=True, device=CPU)
+    for f in ("tile_cols", "hcount", "rptr", "vals"):
+        np.testing.assert_array_equal(getattr(own, f).numpy(), np.asarray(getattr(jop, f)))
+
+
+@pytest.mark.parametrize("bk", [32, 64, 128])
+def test_panel_reference_gives_zero_rows_without_chunks(bk):
+    """The panel kernel's plain version, which the card's checks hold the
+    kernel to, with the chunk count of every block-row that holds no
+    nonzero set to 0 (a row the kernel meets with no chunk at all): those
+    rows are zero and the rest equal scipy's A @ X."""
+    import scipy.sparse as sp
+
+    keep = np.ones(900)
+    keep[300:600] = 0.0  # block-rows 19-36 of 16 hold no nonzero
+    A = (sp.diags(keep) @ random_sym(900, 0.02, seed=2) @ sp.diags(keep)).tocsr()
+    op = tbsr.BlockSparseOperator.from_scipy(A, dtype=torch.float64, bm=16, bk=bk,
+                                            unroll=2, panel=True, device=CPU)
+    per_row = np.add.reduceat(np.diff(A.indptr), np.arange(0, 900, 16))
+    assert (per_row == 0).any()
+    hc = op.hcount.clone()
+    hc[torch.from_numpy(per_row == 0)] = 0
+    ncb = -(-900 // bk)
+    X = np.random.default_rng(3).standard_normal((ncb * bk, 5))
+    Y = tbsr.bsr_spmm_panel_reference(op.tile_cols, hc, op.rptr, op.vals,
+                                      torch.from_numpy(X), bm=16, bk=bk,
+                                      unroll=2).numpy()[:900]
+    want = A @ X[:900]
+    assert rel_err(Y, want) < TOL[np.float64]
+    empty = np.repeat(per_row == 0, 16)[:900]
+    assert not Y[empty].any()

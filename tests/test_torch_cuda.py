@@ -127,35 +127,72 @@ def test_cuda_blocked_ell_kernel_matches_reference(dtype):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-def test_cuda_panel_kernel_matches_reference(dtype):
+@pytest.mark.parametrize("bk", [32, 64, 128])
+@pytest.mark.parametrize("rows", ["as_built", "no_chunk"])
+def test_cuda_panel_kernel_matches_reference(dtype, bk, rows):
+    """The panel kernel (B4) against its plain version at tile heights 6
+    (panel rows not a whole number of 16-byte vectors in f32), 16, 32, 100
+    and 128, unrolls 1-8, contraction widths bk = 32, 64, 128 and b = 1,
+    5, 8, 33 and 100 (one to four column groups of 32).  ``rows="no_chunk"``
+    gives every block-row that holds no nonzero hcount 0, so the kernel
+    meets rows with no chunk at all (they must come out zero); at U = 1
+    the heavy row holds more chunks than the ring has stages (asserted).
+    Both gathers give the same bits, and so do two runs."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernel has no CPU mode")
-    A = random_sym(768, 0.03, seed=3)
-    for bm, U in ((16, 4), (32, 2), (16, 8), (100, 4), (128, 8)):
+    from rbl_tpu_torch.ops.spmm import _kernels
+
+    A = gappy_sym()
+    tol = 1e-5 if dtype == torch.float32 else 1e-12
+    deeper = False
+    for bm, U in ((6, 2), (16, 4), (32, 2), (16, 8), (100, 4), (128, 8), (128, 1)):
         op = tbsr.BlockSparseOperator.from_scipy(
-            A, dtype=dtype, bm=bm, unroll=U, panel=True, device="cuda"
+            A, dtype=dtype, bm=bm, bk=bk, unroll=U, panel=True, device="cuda"
         )
+        hc = _empty_rows_dropped(A, op) if rows == "no_chunk" else op.hcount
+        ncb = -(-A.shape[0] // bk)
         for b in (1, 5, 8, 33, 100):
-            X = torch.randn((6 * 128, b), dtype=dtype, device="cuda")
-            args = (op.tile_cols, op.hcount, op.rptr, op.vals, X)
+            X = torch.randn((ncb * bk, b), dtype=dtype, device="cuda")
+            args = (op.tile_cols, hc, op.rptr, op.vals, X)
             n0 = tbsr.bsr_spmm_panel.launches
-            Ys = tbsr.bsr_spmm_panel(*args, bm=bm, bk=128, H=op.H, unroll=U)
-            Yc = tbsr.bsr_spmm_panel(*args, bm=bm, bk=128, H=op.H, unroll=U,
+            Ys = tbsr.bsr_spmm_panel(*args, bm=bm, bk=bk, H=op.H, unroll=U)
+            Yc = tbsr.bsr_spmm_panel(*args, bm=bm, bk=bk, H=op.H, unroll=U,
                                      gather="concat")
-            Yr = tbsr.bsr_spmm_panel_reference(*args, bm=bm, bk=128, unroll=U)
+            Yr = tbsr.bsr_spmm_panel_reference(*args, bm=bm, bk=bk, unroll=U)
             torch.cuda.synchronize()
             assert tbsr.bsr_spmm_panel.launches == n0 + 2
-            tol = 1e-5 if dtype == torch.float32 else 1e-12
-            assert rel_err(Ys.cpu().numpy(), Yr.cpu().numpy()) < tol
+            assert rel_err(Ys.cpu().numpy(), Yr.cpu().numpy()) < tol, (bm, U, b)
             assert torch.equal(Ys, Yc)
+            if rows == "no_chunk":
+                empty = torch.repeat_interleave(hc == 0, bm)
+                assert not Ys[empty].any()
+            stages = _kernels.panel_plan(bm, b, dtype, bk=bk)["stages"]
+            deeper |= int(hc.max()) > stages
+    assert deeper, "no block-row held more chunks than the ring has stages"
 
 
 @pytest.mark.gpu
-def test_cuda_solve_goes_through_the_panel_kernel():
+def test_cuda_panel_kernel_refuses_a_misaligned_x():
+    """The kernel copies X in 16-byte units: an X whose storage is not
+    16-byte aligned raises, and is not copied quietly."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    A = random_sym(300, 0.05, seed=1)
+    op = tbsr.BlockSparseOperator.from_scipy(A, dtype=torch.float32, bm=16,
+                                            unroll=4, panel=True, device="cuda")
+    X = torch.zeros(3 * 128 * 8 + 1, device="cuda")[1:].view(3 * 128, 8)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        tbsr.bsr_spmm_panel(op.tile_cols, op.hcount, op.rptr, op.vals, X,
+                            bm=16, bk=128, H=op.H, unroll=4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bk", [32, 64, 128])
+def test_cuda_solve_goes_through_the_panel_kernel(bk):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernel has no CPU mode")
     A = fem_elasticity_3d(6)
-    op = tbsr.BlockSparseOperator.from_scipy(A, dtype=torch.float64,
+    op = tbsr.BlockSparseOperator.from_scipy(A, dtype=torch.float64, bk=bk,
                                             panel=True, device="cuda")
     n0 = tbsr.bsr_spmm_panel.launches
     res = rtt.rbl(op, 8, 4)
