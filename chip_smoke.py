@@ -124,7 +124,24 @@ a user calls, and checks the answers:
      and scipy.io.mmread give equal matrices, with both read times; one
      fem42 b=8 apply inside rbl_tpu_torch.utils.profiling.trace(), whose
      exported Chrome trace must hold csrc/bsr_spmm.cu's kernel as a device
-     event.
+     event;
+ 23. the row mesh (rbl_tpu_torch.parallel) on fem_elasticity_3d(47)
+     (n = 324,864, f32, pick_tile_plan's plan): (a) one rank over NCCL in
+     this process: one ShardedBlockSparseOperator apply (X of 10.4 MB:
+     B2) equal bit for bit to BlockSparseOperator.apply on the same plan,
+     B2 on the whole against its plain version, torch.sparse CSR and the
+     bound, and the k = 100, b = 8, tol 1e-3, cap 1,400 solve sharded and
+     unsharded from the same generator (head 90 within 1e-5), with both
+     walls, the mesh layer's overhead and B2's launches; (b) two ranks
+     sharing the card over gloo, spawned as ``chip_smoke.py --mesh-worker``
+     with a timeout, reading fem47's CSR from one temporary .npz: each
+     rank's band apply (X of ~5.4 MB with its ghost blocks: B1) within
+     1e-5 of (a)'s rows, B1 on the band against its plain version, CSR of
+     the band's nonzeros and the bound, the fem47 solve bitwise equal on
+     both ranks with the head 90 within 1e-5 of (a), and
+     lap2d_512_k50_b16 through ShardedLaplacian2D under bench.py's gate;
+     the transport (gloo, host-staged point-to-point) and the collectives
+     a solve.  A rank's failure or a timeout fails the script.
 
 Phases 11-14, 17, 19, 20 and 22 launch B1/B2 through BlockSparseOperator.apply.
 Phase 14's fem42 polish applies A to k + buffer + random columns at once
@@ -134,7 +151,8 @@ f64, and timed, beside torch.sparse CSR at 48 and 90 columns.  In the
 kernels' record ``launches`` is the count of the path the row's times were
 taken on (phases 4-5 for B1/B2) and ``launches_by_phase`` holds every
 path's own count; phases 11-13, 17, 20 and 22 must launch B1, phase 14
-both B1 (its f32 coarse sweep) and B2, and phase 19 one of them.  After
+both B1 (its f32 coarse sweep) and B2, phase 19 one of them, and phase 23
+B2 (one rank) and B1 (each of two ranks).  After
 phase 17 each BSR level's product is also timed through torch.sparse CSR
 (the level's nonzeros), and after phase 14 both entry points are timed at
 90 columns too.  The last two lines are the kernels' JSON
@@ -429,6 +447,370 @@ def check_probe(name: str, vals, seed, xt, bm: int, U: int) -> float:
 def reset_launches(*fns):
     for f in fns:
         f.launches = 0
+
+
+def band_csr(op):
+    """A sharded packed operator's band as a torch.sparse CSR matrix of its
+    own rows by its extended X's rows (own column blocks, then ghosts)."""
+    import torch
+
+    from rbl_tpu_torch.ops.spmm.bsr import _packed_chunks
+
+    row, chunk = _packed_chunks(op.hcount, op.rptr)
+    U = op.unroll
+    tiles = (chunk[:, None] * U + torch.arange(U, device=op.device)).reshape(-1)
+    tv = op.vals[tiles]
+    t, r, q = torch.nonzero(tv, as_tuple=True)
+    rows = row.repeat_interleave(U)[t] * op.bm + r
+    cols = op.tile_cols.long()[tiles][t] * op.bk + q
+    shape = (op.rptr.shape[0] * op.bm,
+             (op.ncb_local + sum(op.caps)) * op.bk)
+    coo = torch.sparse_coo_tensor(torch.stack([rows, cols]), tv[t, r, q], shape)
+    return coo.coalesce().to_sparse_csr()
+
+
+def band_kernel_row(op, X_local, Xe, entry: str, card: str, label: str) -> dict:
+    """The packed entry point on a sharded operator's band (its extended
+    X ``Xe``, made beforehand: the ghost exchange is a collective) against
+    the plain version, timed beside torch.sparse CSR of the band's
+    nonzeros and the bound of what the band needs: its nonzeros (value and
+    int32 index) once, the extended X once, its rows of Y once."""
+    import torch
+
+    from rbl_tpu_torch.ops.spmm import bsr
+
+    args = (op.tile_cols, op.hcount, op.rptr, op.vals, Xe)
+    kw = dict(bm=op.bm, bk=op.bk, unroll=op.unroll)
+    fn = getattr(bsr, entry)
+    if op.kernel(X_local.shape[1]) is not fn:
+        raise AssertionError(f"{label}: the band's apply takes "
+                             f"{op.kernel(X_local.shape[1]).__name__}, not {entry}")
+    abs_err, rel = check(f"{entry} {label}", lambda: fn(*args, H=op.H, **kw),
+                         lambda: bsr.bsr_spmm_packed_reference(*args, **kw),
+                         op.dtype)
+    ms = time_ms(lambda: fn(*args, H=op.H, **kw))
+    plain_ms = time_ms(lambda: bsr.bsr_spmm_packed_reference(*args, **kw))
+    csr = band_csr(op)
+    lib_ms = time_ms(lambda: torch.sparse.mm(csr, Xe))
+    es, b = op.vals.element_size(), X_local.shape[1]
+    nnz = int(csr.values().numel())
+    rows = op.rptr.shape[0] * op.bm
+    lim = bound(nnz * (es + 4) + (Xe.shape[0] + rows) * b * es, 2 * nnz * b)
+    print(f"{entry} {label}: rel err {rel:.2e}, kernel {ms:.4f} ms, plain "
+          f"{plain_ms:.4f} ms, CSR {lib_ms:.4f} ms, bound {lim['bound_ms']:.4f} "
+          f"ms ({lim['bound_by']}; {100 * lim['bound_ms'] / ms:.1f}%), "
+          f"X {Xe.shape[0]} rows ({Xe.numel() * es / 1e6:.2f} MB), "
+          f"{rows} rows out, {nnz} nonzeros  [{card}]")
+    return dict(max_abs_err=abs_err, ms=ms, plain_ms=plain_ms,
+                library_ms=lib_ms, **lim)
+
+
+MESH_HEAD = 90  # the fem47 solves are compared on their 90 largest values
+
+
+def mesh_solve_cfg(mesh=None, **kw):
+    """The fem47 solve of phase 23: k = 100, b = 8, f32, cholqr2, tol
+    1e-3, cap 1,400 (the fem42 main path's configuration)."""
+    import torch
+
+    import rbl_tpu_torch as rt
+
+    return rt.RBLConfig(block_size=8, basis_dtype=torch.float32,
+                        compute_dtype=torch.float32, qr_method="cholqr2",
+                        tol=1e-3, max_kryl_dim=1400, mesh=mesh, **kw)
+
+
+def phase_mesh(card: str, kernels: dict, by_phase: dict, every) -> None:
+    """Phase 23: the row mesh on fem47, one rank over NCCL here, then two
+    ranks sharing the card over gloo in two spawned processes."""
+    import socket
+
+    import torch
+
+    import rbl_tpu_torch as rt
+    from rbl_tpu_torch.ops.spmm import bsr
+    from rbl_tpu_torch.parallel.dist_spmm import ShardedBlockSparseOperator
+    from rbl_tpu_torch.parallel.distributed import (
+        initialize_cluster,
+        shutdown_cluster,
+    )
+    from rbl_tpu_torch.parallel.mesh import make_row_mesh
+    from rbl_tpu_torch.utils.fem import fem_elasticity_3d
+
+    B1, B2 = bsr.bsr_spmm_packed_resident, bsr.bsr_spmm_packed
+    t0 = time.perf_counter()
+    A = fem_elasticity_3d(47)
+    n = A.shape[0]
+    bm, U = bsr.pick_tile_plan(A)
+    print(f"fem47: n={n} nnz={A.nnz}, plan ({bm}, {U}), assembled and planned "
+          f"in {time.perf_counter() - t0:.1f} s")
+
+    # --- (a) one rank over NCCL ----------------------------------------------
+    def free_port():
+        with socket.socket() as sk:
+            sk.bind(("localhost", 0))
+            return sk.getsockname()[1]
+
+    initialize_cluster(f"localhost:{free_port()}", 1, 0, device="cuda")
+    mesh = make_row_mesh(1)
+    mesh.all_reduce_sum(torch.zeros(1, device="cuda"))  # NCCL's set-up
+    torch.cuda.synchronize()
+    print(f"(a) {mesh.describe()}")
+    t0 = time.perf_counter()
+    opS = ShardedBlockSparseOperator.from_scipy(A, mesh, dtype=torch.float32,
+                                                bm=bm, unroll=U)
+    opU = bsr.BlockSparseOperator.from_scipy(A, dtype=torch.float32, bm=bm,
+                                             unroll=U, device="cuda")
+    print(f"(a) both operators built in {time.perf_counter() - t0:.1f} s; "
+          f"tile lists equal: "
+          f"{bool(torch.equal(opS.tile_cols, opU.tile_cols))}, vals equal: "
+          f"{bool(torch.equal(opS.vals, opU.vals))}")
+    g = torch.Generator(device="cuda").manual_seed(47)
+    X = torch.randn((n, 8), generator=g, dtype=torch.float32, device="cuda")
+    reset_launches(*every)
+    Ys, Yu = opS.apply(X), opU.apply(X)
+    torch.cuda.synchronize()
+    if B2.launches != 2 or B1.launches != 0:
+        raise AssertionError(f"(a) fem47 b=8 applies launched B1 {B1.launches}"
+                             f", B2 {B2.launches} times, not B2 twice")
+    if not torch.equal(Ys, Yu):
+        raise AssertionError("(a) the one-rank sharded apply differs from "
+                             "BlockSparseOperator.apply: max abs "
+                             f"{float((Ys - Yu).abs().max()):.3e}")
+    print("(a) one-rank sharded apply (B2) equals BlockSparseOperator.apply "
+          "bit for bit")
+    row_b2 = band_kernel_row(opS, X, opS.extended_x(X), "bsr_spmm_packed", card,
+                             "fem47 whole, one rank, f32 b=8")
+    # solves from the same generator (seed 0): unsharded, then sharded
+    walls, res = {}, {}
+    for label, op, m in (("unsharded", opU, None), ("sharded", opS, mesh)):
+        reset_launches(*every)
+        mesh.reset_stats()
+        t1 = time.perf_counter()
+        r = rt.rbl(op, 100, cfg=mesh_solve_cfg(m))
+        torch.cuda.synchronize()
+        walls[label] = time.perf_counter() - t1
+        res[label] = r
+        w = np.asarray(r.eigenvalues)
+        if w.shape != (100,) or not np.all(np.isfinite(w)):
+            raise AssertionError(f"(a) fem47 {label}: eigenvalues not finite")
+        stats = dict(mesh.stats) if m is not None else {}
+        print(f"(a) fem47 k=100 b=8 {label}: wall {walls[label]:.3f} s, "
+              f"kryl_dim {r.kryl_dim}, converged {r.converged}, launches "
+              f"B1 {B1.launches} B2 {B2.launches}, collectives {stats}  [{card}]")
+        if label == "sharded":
+            if B2.launches < 1:
+                raise AssertionError("(a) the sharded solve never launched B2")
+            by_phase["bsr_spmm_packed"]["23"] = B2.launches
+    head_a = np.asarray(res["unsharded"].eigenvalues)[:MESH_HEAD]
+    agree = rel_diff(np.asarray(res["sharded"].eigenvalues)[:MESH_HEAD], head_a)
+    if not agree < 1e-5:
+        raise AssertionError(f"(a) sharded vs unsharded head {MESH_HEAD}: "
+                             f"{agree:.3e} ≥ 1e-5")
+    print(f"(a) head {MESH_HEAD} sharded vs unsharded: max rel {agree:.3e}; "
+          f"mesh layer overhead {walls['sharded'] - walls['unsharded']:+.3f} s "
+          f"({100 * (walls['sharded'] / walls['unsharded'] - 1):+.1f}%)  [{card}]")
+    kernels["bsr_spmm_packed"]["mesh"] = dict(
+        shape=f"fem47 whole (one rank), plan ({bm}, {U}), f32 b=8",
+        launches=by_phase["bsr_spmm_packed"]["23"],
+        walls_s=dict(walls), head_agreement=agree, **row_b2)
+    Y_a = Yu.cpu().numpy()
+    X_h = X.cpu().numpy()
+    w_a = np.asarray(res["unsharded"].eigenvalues)
+    del opS, opU, Ys, Yu, X, res
+    shutdown_cluster()
+    torch.cuda.empty_cache()
+
+    # --- (b) two ranks sharing the card over gloo ---------------------------
+    with tempfile.TemporaryDirectory() as tmp:
+        A32 = A.astype(np.float32)
+        path = os.path.join(tmp, "fem47.npz")
+        t0 = time.perf_counter()
+        np.savez(path, indptr=A32.indptr, indices=A32.indices, data=A32.data,
+                 shape=np.asarray(A32.shape), bm=bm, unroll=U, X=X_h, Y=Y_a,
+                 w=w_a)
+        print(f"(b) fem47 CSR written once ({os.path.getsize(path) / 1e6:.0f} "
+              f"MB) in {time.perf_counter() - t0:.1f} s")
+        del A, A32
+        port = free_port()
+        outs = [os.path.join(tmp, f"rank{r}.json") for r in range(2)]
+        procs = [subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--mesh-worker",
+             str(r), "2", str(port), path, outs[r]],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+            start_new_session=True, cwd=ROOT) for r in range(2)]
+        t0 = time.perf_counter()
+        logs = []
+        try:
+            for p in procs:
+                log, _ = p.communicate(
+                    timeout=max(1.0, 240 - (time.perf_counter() - t0)))
+                logs.append(log)
+        except subprocess.TimeoutExpired:
+            for p in procs:
+                if p.poll() is None:
+                    os.killpg(p.pid, 9)
+                p.wait()
+            raise AssertionError("(b) the two-rank run outlived 240 s")
+        for r, (p, log) in enumerate(zip(procs, logs)):
+            for line in log.strip().splitlines():
+                print(f"  [rank {r}] {line}")
+            if p.returncode != 0:
+                for q in procs:
+                    if q.poll() is None:
+                        os.killpg(q.pid, 9)
+                raise AssertionError(f"(b) rank {r} exited {p.returncode}")
+        ranks = []
+        for o in outs:
+            with open(o) as f:
+                ranks.append(json.load(f))
+    w0, w1 = (np.array([float.fromhex(v) for v in rk["w_hex"]]) for rk in ranks)
+    if w0.tobytes() != w1.tobytes():
+        raise AssertionError("(b) the two ranks' fem47 eigenvalues differ")
+    agree_b = rel_diff(w0[:MESH_HEAD], w_a[:MESH_HEAD])
+    if not agree_b < 1e-5:
+        raise AssertionError(f"(b) two-rank head {MESH_HEAD} vs (a): "
+                             f"{agree_b:.3e} ≥ 1e-5")
+    b1 = sum(rk["b1_launches"] for rk in ranks)
+    by_phase["bsr_spmm_packed_resident"]["23"] = b1
+    print(f"(b) fem47 eigenvalues bitwise equal on both ranks; head "
+          f"{MESH_HEAD} vs (a) {agree_b:.3e}; B1 launches {b1} "
+          f"({[rk['b1_launches'] for rk in ranks]}); walls "
+          f"{[round(rk['wall_s'], 3) for rk in ranks]} s; lap2d_512 max rel "
+          f"err {ranks[0]['lap_err']:.3e}  [{card}]")
+    kernels["bsr_spmm_packed_resident"]["mesh"] = dict(
+        shape=ranks[0]["band_shape"], launches=b1,
+        by_rank=[rk["band_row"] for rk in ranks],
+        transport=ranks[0]["transport"], head_agreement=agree_b,
+        walls_s=[rk["wall_s"] for rk in ranks],
+        collectives=[rk["collectives"] for rk in ranks],
+        **ranks[0]["band_row"])
+
+
+def mesh_worker(argv) -> int:
+    """One rank of phase 23 (b): ``--mesh-worker rank nranks port npz
+    out.json``.  Joins the gloo group on cuda:0, checks its band apply and
+    B1 on it, solves fem47 and lap2d_512_k50_b16 on the mesh, and writes
+    its results to out.json."""
+    import scipy.sparse as sp
+    import torch
+    import torch.distributed as dist
+
+    import rbl_tpu_torch as rt
+    from rbl_tpu_torch.ops.spmm import bsr
+    from rbl_tpu_torch.parallel.dist_spmm import (
+        ShardedBlockSparseOperator,
+        ShardedLaplacian2D,
+    )
+    from rbl_tpu_torch.parallel.distributed import (
+        initialize_cluster,
+        shutdown_cluster,
+    )
+    from rbl_tpu_torch.parallel.mesh import make_row_mesh
+
+    rank, nranks, port, path, out = (int(argv[0]), int(argv[1]), argv[2],
+                                     argv[3], argv[4])
+    torch.set_float32_matmul_precision("highest")
+    card = card_line()
+    initialize_cluster(f"localhost:{port}", nranks, rank, device="cuda:0",
+                       backend="gloo", timeout_s=120)
+    mesh = make_row_mesh(nranks, device="cuda:0")
+    print(mesh.describe())
+    # torch.distributed's table lists gloo with CUDA tensors in all_reduce
+    # and broadcast only: all_reduce is used as it is, point-to-point is
+    # staged (it would read device pointers as host memory); the list
+    # all_gather is tried here and reported
+    probe = torch.arange(4, dtype=torch.float32, device="cuda:0") + rank
+    red = probe.clone()
+    dist.all_reduce(red)
+    ok_reduce = bool(torch.equal(red.cpu(), torch.arange(4.0) * 2 + 1))
+    try:
+        parts = [torch.empty_like(probe) for _ in range(nranks)]
+        dist.all_gather(parts, probe)
+        gather = "works" if bool(torch.equal(parts[1].cpu(), torch.arange(4.0) + 1)) else "wrong"
+    except RuntimeError as e:
+        gather = f"raises ({str(e).splitlines()[0][:80]})"
+    transport = (f"gloo on cuda:0 shared by {nranks} ranks; all_reduce of CUDA "
+                 f"tensors direct ({'ok' if ok_reduce else 'WRONG'}); "
+                 f"point-to-point and all-gather staged through pinned host "
+                 f"buffers; list all_gather of CUDA tensors {gather}")
+    print(transport)
+    if not ok_reduce:
+        raise AssertionError("gloo all_reduce of a CUDA tensor is wrong")
+    z = np.load(path)
+    A = sp.csr_matrix((z["data"], z["indices"], z["indptr"]),
+                      shape=tuple(z["shape"]))
+    n = A.shape[0]
+    t0 = time.perf_counter()
+    op = ShardedBlockSparseOperator.from_scipy(
+        A, mesh, dtype=torch.float32, bm=int(z["bm"]), unroll=int(z["unroll"]))
+    lo, hi = mesh.row_range(n)
+    print(f"band rows {lo}..{hi}, caps {op.caps}, ghost blocks "
+          f"{op.comm_blocks_per_apply()}, built in {time.perf_counter() - t0:.1f} s")
+    X = mesh.shard_rows(torch.from_numpy(z["X"]))
+    reset_launches(bsr.bsr_spmm_packed_resident, bsr.bsr_spmm_packed)
+    Y = op.apply(X).cpu().numpy()
+    if bsr.bsr_spmm_packed_resident.launches != 1:
+        raise AssertionError("the band apply did not launch B1")
+    err = float(np.abs(Y - z["Y"][lo:hi]).max() / np.abs(z["Y"][lo:hi]).max())
+    if not err < 1e-5:
+        raise AssertionError(f"band apply vs (a)'s rows: {err:.3e} ≥ 1e-5")
+    print(f"band apply (B1) vs (a)'s rows: max rel {err:.3e}")
+    # the ranks share the card: each times its band while the others wait
+    Xe = op.extended_x(X)
+    for r in range(nranks):
+        if r == rank:
+            row = band_kernel_row(op, X, Xe, "bsr_spmm_packed_resident", card,
+                                  f"fem47 band of rank {rank}/{nranks}, f32 b=8")
+        mesh.barrier()
+    row["band_apply_rel"] = err
+    B1 = bsr.bsr_spmm_packed_resident
+    reset_launches(B1, bsr.bsr_spmm_packed)
+    mesh.reset_stats()
+    t0 = time.perf_counter()
+    res = rt.rbl(op, 100, cfg=mesh_solve_cfg(mesh))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    b1 = B1.launches
+    if b1 < 1 or bsr.bsr_spmm_packed.launches:
+        raise AssertionError(f"the fem47 solve launched B1 {b1}, B2 "
+                             f"{bsr.bsr_spmm_packed.launches} times")
+    coll = dict(mesh.stats)
+    w = np.asarray(res.eigenvalues)
+    if w.shape != (100,) or not np.all(np.isfinite(w)):
+        raise AssertionError("fem47 on the mesh: eigenvalues not finite")
+    print(f"fem47 k=100 b=8 on {nranks} ranks: wall {wall:.3f} s, kryl_dim "
+          f"{res.kryl_dim}, converged {res.converged}, B1 launches {b1}, "
+          f"collectives {coll}  [{card}]")
+    # the headline through the sharded stencil
+    lap = ShardedLaplacian2D(nx=512, ny=512, mesh=mesh, dtype=torch.float32)
+    cfg = rt.RBLConfig(block_size=16, basis_dtype=torch.bfloat16,
+                       compute_dtype=torch.float32, qr_method="cholqr2",
+                       tol=1e-3, max_kryl_dim=768, eig_poll_cadence=16,
+                       mesh=mesh)
+    for seed in (0, 1):  # the second, warm run is timed
+        mesh.reset_stats()
+        t0 = time.perf_counter()
+        lres = rt.rbl(lap, 50, cfg=cfg.replace(seed=seed))
+        torch.cuda.synchronize()
+        lwall = time.perf_counter() - t0
+    lap_err = laplacian_check(lres.eigenvalues, 512)
+    if not lap_err < 0.025:
+        raise AssertionError(f"lap2d 512² on the mesh: off by {lap_err:.3f}")
+    print(f"lap2d 512² k=50 b=16 (bench config) on {nranks} ranks: warm wall "
+          f"{lwall:.3f} s, max rel err {lap_err:.3e}, kryl_dim "
+          f"{lres.kryl_dim}, collectives {dict(mesh.stats)}  [{card}]")
+    mesh.barrier()
+    shutdown_cluster()
+    with open(out, "w") as f:
+        json.dump(dict(
+            w_hex=[float(v).hex() for v in w], wall_s=wall, b1_launches=b1,
+            collectives=coll, lap_err=lap_err, lap_wall_s=lwall,
+            lap_collectives=dict(mesh.stats), transport=transport,
+            band_row=row, band_shape=(
+                f"fem47 band ({hi - lo} rows, {op.comm_blocks_per_apply()} "
+                f"ghost blocks), plan ({op.bm}, {op.unroll}), f32 b=8")), f)
+    return 0
 
 
 def rel_diff(a, b) -> float:
@@ -1424,6 +1806,8 @@ def panel_bk_sweep(A, csr32, card: str):
 def main() -> int:
     import torch
 
+    if len(sys.argv) > 1 and sys.argv[1] == "--mesh-worker":
+        return mesh_worker(sys.argv[2:])
     if not torch.cuda.is_available():
         print("chip_smoke.py: torch.cuda.is_available() is False — this "
               "script runs on a CUDA card only", file=sys.stderr)
@@ -1855,6 +2239,13 @@ def main() -> int:
     long_phase(20, (B1,), phase_eig_backends, fem_op, head, cfg, card)
     long_phase(21, (), phase_scipy_pencil_svd, card)
     long_phase(22, (B1,), phase_load_and_trace, fem_op, card)
+    del fem_op
+    torch.cuda.empty_cache()
+
+    # --- 23. the row mesh: one rank over NCCL, two sharing the card -------
+    t23 = time.perf_counter()
+    phase_mesh(card, kernels, by_phase, every)
+    print(f"phase 23: {time.perf_counter() - t23:.1f} s")
     print(f"chip_smoke total: {time.perf_counter() - t_start:.1f} s")
 
     record = {"kernels": [

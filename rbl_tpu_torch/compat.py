@@ -104,6 +104,11 @@ def _no_convergence(msg: str, w, V, n):
 def _cfg_with_tol_ncv(cfg, tol, ncv, k):
     """The shared eigsh cfg plumbing: tol → cfg.tol, ncv → Krylov cap."""
     cfg = cfg or RBLConfig()
+    if cfg.mesh is not None:
+        raise NotImplementedError(
+            "the scipy front door (eigsh/svds) under a row mesh: not ported "
+            "yet (ROADMAP.md section A) — call rbl/rbl_svd with cfg.mesh"
+        )
     if tol and tol > 0:
         cfg = cfg.replace(tol=float(tol))
     if ncv is not None:

@@ -59,6 +59,18 @@ class RBLConfig:
     seed:
         Seed of the ``torch.Generator`` that draws the random start block
         and every breakdown re-randomization.
+    mesh / rows_axis:
+        Optional ``parallel.mesh.RowMesh`` over which the row dimension
+        (n) of the operator, of every Krylov block, of the basis and of
+        the lock set is split, one contiguous slab a rank; None means one
+        device.  Under a mesh every n-sized tensor the solver takes or
+        returns (``v0`` and ``deflate`` excepted, which are global) is
+        the rank's rows, and the eigenvectors come back as the rank's
+        rows (``RowMesh.gather_rows`` gives the whole).  An operator that
+        is not sharded is applied as GSPMD applies a replicated one:
+        all-gather X, apply, keep the own rows.  ``rows_axis`` names the
+        axis, as in the JAX package; the mesh's own ``axis`` is the one
+        read.
     device:
         Device that holds the operator and the basis when ``rbl`` builds
         the operator from host data (a scipy or numpy matrix).  None means
@@ -129,6 +141,8 @@ class RBLConfig:
     qr_method: str = "auto"
     eig_backend: str = "banded_host"
     seed: int = 0
+    mesh: Optional[Any] = None
+    rows_axis: str = "rows"
     device: Optional[str] = None
     hbm_budget_fraction: float = 0.8
     basis_device_cap_cols: Optional[int] = None

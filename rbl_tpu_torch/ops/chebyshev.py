@@ -42,10 +42,12 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+from typing import Any
 
 import numpy as np
 import torch
 
+from ..parallel.mesh import col_sumsq
 from .spmm.operator import LinearOperator
 
 
@@ -176,6 +178,7 @@ class ChebyshevProductFilter(LinearOperator):
     a: torch.Tensor      # 0-d: damped-interval lower edge (≤ λ_min!)
     b: torch.Tensor      # 0-d: damped-interval upper edge (the cutoff)
     degree: int = 24
+    mesh: Any = None     # RowMesh: X is the rank's rows, norms reduced
 
     @classmethod
     def make(cls, base: LinearOperator, a: float, b: float,
@@ -211,7 +214,7 @@ class ChebyshevProductFilter(LinearOperator):
         Y = X
         for i in range(self.degree):
             Y = self.base.apply(Y) - roots[i] * Y
-            nrm = torch.sqrt(torch.sum(Y * Y, dim=0))
+            nrm = torch.sqrt(col_sumsq(Y, self.mesh))
             Y = Y / torch.where(nrm > 0, nrm, torch.ones_like(nrm))
         return Y
 

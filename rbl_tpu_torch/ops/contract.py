@@ -10,6 +10,10 @@ through OpenBLAS's register-blocked accumulation, RBL.jl:7-8).
 fixed chunks, each chunk contracted as one batched product, and the ~n/chunk
 partials reduced pairwise.  Error drops from O(n·eps) to
 O((chunk + n/chunk)·eps) worst-case.
+
+Under a row mesh (``mesh``, a ``parallel.mesh.RowMesh``) X and Y are the
+rank's rows: each rank contracts its slab the same way and one all-reduce
+sums the partials, in the accumulation dtype (never in bf16).
 """
 
 from __future__ import annotations
@@ -33,12 +37,18 @@ def _pairwise_sum(P):
     return P[0]
 
 
-def gram(X, Y, chunk: int = _CHUNK, acc_dtype=None):
-    """XᵀY with two-level row-chunked accumulation.  X: (n, p), Y: (n, q).
+def gram(X, Y, chunk: int = _CHUNK, acc_dtype=None, mesh=None):
+    """XᵀY with two-level row-chunked accumulation.  X: (n, p), Y: (n, q)
+    (the rank's rows under ``mesh``, the result summed over the ranks).
 
     The full chunks are contracted as strided views of X and Y (no copy
     unless a dtype cast is needed); the ragged tail rows form the last
     partial, which equals the JAX package's zero-padded last chunk."""
+    G = _local_gram(X, Y, chunk, acc_dtype)
+    return G if mesh is None else mesh.all_reduce_sum(G)
+
+
+def _local_gram(X, Y, chunk, acc_dtype):
     n, p = X.shape
     q = Y.shape[1]
     acc = acc_dtype or _pet(torch.promote_types(X.dtype, Y.dtype))

@@ -163,19 +163,26 @@ def check_convergence(Bi, V, b: int, k: int, tol: float) -> bool:
 
 
 def spectral_norm_bound(op, generator: torch.Generator, iters: int = 24,
-                        margin: float = 1.1) -> float:
+                        margin: float = 1.1, mesh=None) -> float:
     """An upper estimate of ‖A‖₂ = |λ|max of a symmetric operator: power
     iteration (a monotone UNDER-estimate converging geometrically in
     |λ₂/λ₁|) times a safety margin.  Sizes the spectral shift for
     ``which="LA"/"SA"`` solves — an overshoot only compresses relative
     gaps by O(margin), while an undershoot could leave the wrong spectrum
-    end dominant."""
-    v = torch.randn((op.n, 1), generator=generator, dtype=op.dtype,
-                    device=op.device)
-    v = v / torch.linalg.norm(v)
+    end dominant.  Under ``mesh`` the vectors are the rank's rows (the
+    whole start vector is drawn on every rank) and the norms are reduced
+    over the ranks."""
+    from ..parallel.mesh import col_sumsq, randn_rows
+
+    v = randn_rows(op.n, 1, generator, op.dtype, op.device, mesh)
+    if mesh is None:
+        v = v / torch.linalg.norm(v)
+    else:
+        v = v / torch.sqrt(col_sumsq(v, mesh))
     nrm = torch.zeros((), dtype=v.dtype, device=v.device)
     for _ in range(iters):
         w = op.apply(v)
-        nrm = torch.linalg.norm(w)
+        nrm = (torch.linalg.norm(w) if mesh is None
+               else torch.sqrt(col_sumsq(w, mesh))[0])
         v = w / nrm
     return margin * float(nrm)

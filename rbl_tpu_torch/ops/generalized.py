@@ -284,6 +284,14 @@ class GeneralizedShiftInvertOperator(LinearOperator):
     inner_precision: str = "auto"
     counts: dict = dataclasses.field(default_factory=dict)
 
+    def __post_init__(self):
+        from ..parallel.dist_spmm import op_mesh
+        from .minres import _refuse_psolve_on_mesh
+
+        # sharded A and M: MINRES on the rank's rows, reduced over the mesh
+        self._mesh = op_mesh(self.A)
+        _refuse_psolve_on_mesh(self._mesh, self.psolve)
+
     @property
     def shape(self):
         return self.A.shape
@@ -310,7 +318,8 @@ class GeneralizedShiftInvertOperator(LinearOperator):
             dA, dM = self.A.diagonal(), self.M.diagonal()
             if dA is not None and dM is not None:
                 psolve = jacobi_psolve(
-                    dA.to(self.dtype) - self.sigma * dM.to(self.dtype)
+                    dA.to(self.dtype) - self.sigma * dM.to(self.dtype),
+                    mesh=self._mesh, n=self.A.n,
                 )
         if self.inner_precision == "mixed":
             A32 = cast_operator(self.A, torch.float32)
@@ -323,12 +332,12 @@ class GeneralizedShiftInvertOperator(LinearOperator):
             Y, (itn, _) = block_minres_refined(
                 op, B, shift=0.0, tol=self.inner_tol,
                 apply32=op32, psolve32=psolve,
-                inner_maxiter=self.inner_maxiter,
+                inner_maxiter=self.inner_maxiter, mesh=self._mesh,
             )
         else:
             Y, (itn, _) = block_minres(
                 op, B, shift=0.0, tol=self.inner_tol,
-                maxiter=self.inner_maxiter, psolve=psolve,
+                maxiter=self.inner_maxiter, psolve=psolve, mesh=self._mesh,
             )
         _count(self.counts, itn)
         return self.msqrt.apply(Y).to(X.dtype)

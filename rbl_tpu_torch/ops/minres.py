@@ -52,11 +52,15 @@ from .spmm.operator import LinearOperator, cast_operator
 DEFAULT_CHECK_EVERY = 4
 
 
-def _coldot(X: torch.Tensor, Y: torch.Tensor) -> torch.Tensor:
-    """Per-column dot products, f32-accumulated for sub-f32 inputs."""
+def _coldot(X: torch.Tensor, Y: torch.Tensor, mesh=None) -> torch.Tensor:
+    """Per-column dot products, f32-accumulated for sub-f32 inputs (summed
+    over the ranks of ``mesh``, whose rows X and Y are)."""
+    from ..parallel.mesh import all_reduce_sum
+
     if X.dtype.itemsize >= 4:
-        return torch.sum(X * Y, dim=0)
-    return torch.sum(X.float() * Y.float(), dim=0).to(X.dtype)
+        return all_reduce_sum(torch.sum(X * Y, dim=0), mesh)
+    return all_reduce_sum(torch.sum(X.float() * Y.float(), dim=0),
+                          mesh).to(X.dtype)
 
 
 def _safe(d: torch.Tensor) -> torch.Tensor:
@@ -73,6 +77,7 @@ def block_minres(
     tol: float = 1e-11,
     maxiter: Optional[int] = None,
     psolve: Optional[Callable[[torch.Tensor], torch.Tensor]] = None,
+    mesh=None,
 ):
     """Solve (A − shift·I) X = B columnwise with MINRES in lockstep.
 
@@ -91,6 +96,10 @@ def block_minres(
         — Lanczos runs on T^{1/2}·(A−σI)·T^{1/2} implicitly, one ``psolve``
         per iteration, no T^{1/2} ever formed.  T must be symmetric
         positive definite.
+    mesh: a ``parallel.mesh.RowMesh`` whose rank's rows B (and every
+        block ``apply_a`` and ``psolve`` take) are; the column dot
+        products are summed over the ranks, so every scalar of the
+        recurrence, and the stop test, are the same on every rank.
 
     Returns
     -------
@@ -115,11 +124,11 @@ def block_minres(
         def psolve(X):  # noqa: E306 — identity preconditioner
             return X
         y = B
-        beta1 = torch.sqrt(_coldot(B, B))
+        beta1 = torch.sqrt(_coldot(B, B, mesh))
     else:
         y = psolve(B)
         # β² = rᵀTr ≥ 0 for SPD T; clamp rounding noise
-        beta1 = torch.sqrt(torch.clamp(_coldot(B, y), min=0.0))
+        beta1 = torch.sqrt(torch.clamp(_coldot(B, y, mesh), min=0.0))
     beta1s = _safe(beta1)  # zero columns converge at itn=0 with x=0
     thresh = tol * beta1s
 
@@ -142,12 +151,12 @@ def block_minres(
         # the r1 correction only exists from the second iteration on
         if itn >= 2:
             y = y - (beta / safe_oldb)[None, :] * r1
-        alfa = _coldot(v, y)
+        alfa = _coldot(v, y, mesh)
         y = y - (alfa / safe_beta)[None, :] * r2
         r1, r2 = r2, y
         y = psolve(r2)
         safe_oldb = safe_beta
-        beta = torch.sqrt(torch.clamp(_coldot(r2, y), min=0.0))
+        beta = torch.sqrt(torch.clamp(_coldot(r2, y, mesh), min=0.0))
         safe_beta = _safe(beta)
 
         # previous plane rotation applied to the new tridiagonal column
@@ -228,6 +237,12 @@ class ShiftInvertOperator(LinearOperator):
         if self.inner_precision not in ("auto", "full", "mixed"):
             raise ValueError(
                 f"unknown inner_precision {self.inner_precision!r}")
+        from ..parallel.dist_spmm import op_mesh
+
+        # a sharded base: MINRES on the rank's rows, its dot products
+        # reduced over the mesh
+        self._mesh = op_mesh(self.base)
+        _refuse_psolve_on_mesh(self._mesh, self.psolve)
         # Resolve "auto" once, at construction: the MG V-cycle
         # approximates A⁻¹, which only preconditions (A − σI) well while
         # |σ| is small against ‖A‖ — for interior shifts the 1 − σ/λ
@@ -299,12 +314,12 @@ class ShiftInvertOperator(LinearOperator):
             Y, (itn, _) = block_minres_refined(
                 self.base.apply, B, shift=self.sigma,
                 tol=self.inner_tol, apply32=op32.apply, psolve32=psolve,
-                inner_maxiter=self.inner_maxiter,
+                inner_maxiter=self.inner_maxiter, mesh=self._mesh,
             )
         else:
             Y, (itn, _) = block_minres(
                 self.base.apply, B, shift=self.sigma, tol=self.inner_tol,
-                maxiter=self.inner_maxiter, psolve=psolve,
+                maxiter=self.inner_maxiter, psolve=psolve, mesh=self._mesh,
             )
         _count(self.counts, itn)
         return Y
@@ -338,7 +353,8 @@ class ShiftInvertOperator(LinearOperator):
         if psolve is None and precond == "jacobi":
             d = self.base.diagonal()
             if d is not None:
-                psolve = jacobi_psolve(d.to(self.dtype) - self.sigma)
+                psolve = jacobi_psolve(d.to(self.dtype) - self.sigma,
+                                       mesh=self._mesh, n=self.base.n)
         return self._minres_solve(X.to(self.dtype), psolve).to(X.dtype)
 
     def _fdm_apply(self, X: torch.Tensor) -> torch.Tensor:
@@ -369,6 +385,7 @@ def block_minres_refined(
     inner_tol: float = 1e-5,
     inner_maxiter: Optional[int] = None,
     max_refine: int = 8,
+    mesh=None,
 ):
     """Solve (A − σI) X = B to f64 accuracy with ALL MINRES iterations in
     f32: repeated defect correction x ← x + S₃₂(b − (A−σI)x), where S₃₂ is
@@ -384,8 +401,10 @@ def block_minres_refined(
 
     apply32/psolve32 default to casting wrappers around ``apply64``.
     Returns (X, (refinements, relres)); the per-column residuals are read
-    once per refinement step.
+    once per refinement step.  ``mesh`` as in ``block_minres``.
     """
+    from ..parallel.mesh import col_sumsq
+
     if apply32 is None:
         def apply32(V):  # noqa: E306
             return apply64(V.to(B.dtype)).to(torch.float32)
@@ -393,7 +412,7 @@ def block_minres_refined(
     sig32 = sig64.to(torch.float32)
 
     def rnorm(r):
-        return torch.sqrt(torch.sum(r * r, dim=0))
+        return torch.sqrt(col_sumsq(r, mesh))
 
     bnorm = rnorm(B)
     bnorm_s = torch.where(bnorm > 0, bnorm, torch.ones_like(bnorm))
@@ -404,7 +423,7 @@ def block_minres_refined(
     def solve32(r):
         dx, _ = block_minres(
             apply32, r.to(torch.float32), shift=sig32, tol=inner_tol,
-            maxiter=inner_maxiter, psolve=psolve32,
+            maxiter=inner_maxiter, psolve=psolve32, mesh=mesh,
         )
         return dx.to(B.dtype)
 
@@ -430,7 +449,19 @@ def default_inner_tol(dtype, tol: float) -> float:
     return float(max(floor, min(1e-11, 1e-4 * tol)))
 
 
-def jacobi_psolve(d: torch.Tensor, clamp_quantile: float = 0.1
+def _refuse_psolve_on_mesh(mesh, psolve) -> None:
+    """An explicit preconditioner (the assembled multigrid's V-cycle)
+    takes whole blocks; on a row mesh it would be handed a rank's rows."""
+    if mesh is not None and psolve is not None:
+        raise NotImplementedError(
+            "an explicit inner psolve (e.g. AssembledMultigrid.psolve) "
+            "under a row mesh: not ported yet (ROADMAP.md section A, the "
+            "multigrid levels on a mesh) — use the Jacobi preconditioner"
+        )
+
+
+def jacobi_psolve(d: torch.Tensor, clamp_quantile: float = 0.1,
+                  mesh=None, n: Optional[int] = None
                   ) -> Callable[[torch.Tensor], torch.Tensor]:
     """SPD Jacobi preconditioner T = diag(max(|d|, floor))⁻¹ for a
     (possibly indefinite) system whose matrix diagonal is ``d`` — the
@@ -442,9 +473,12 @@ def jacobi_psolve(d: torch.Tensor, clamp_quantile: float = 0.1
     at interior shifts, and amplifying the near-crossing rows by 1/|d|
     scales their off-diagonal coupling up unboundedly.  Clamping at q10
     keeps those rows un-amplified while preserving the global
-    equilibration.  Everything stays on d's device."""
+    equilibration.  Everything stays on d's device.  Under ``mesh`` d is
+    the rank's rows of an n-row diagonal, and the quantile is the whole
+    diagonal's (one gather)."""
     dabs = torch.abs(d)
-    floor = torch.clamp(torch.quantile(dabs, clamp_quantile),
+    whole = dabs if mesh is None else mesh.gather_rows(dabs, n)
+    floor = torch.clamp(torch.quantile(whole, clamp_quantile),
                         min=torch.finfo(d.dtype).tiny)
     inv = 1.0 / torch.maximum(dabs, floor)
 

@@ -12,6 +12,12 @@ The reference leans on LAPACK geqrf (RBL.jl:86,103) and CUSOLVER qr
 A small symmetric shift (shifted CholeskyQR) guards against breakdown when
 the residual block is numerically rank-deficient — a case the reference never
 handles (SURVEY §5: no breakdown handling).
+
+Under a row mesh (``mesh``) X is the rank's rows.  CholeskyQR reduces its
+b×b Gram and its column norms over the ranks (one all-reduce each), so R
+is replicated and Q keeps the rank's rows.  Householder does what GSPMD
+does with ``jnp.linalg.qr`` of a row-sharded operand: it gathers the
+(n, b) block, factors it on every rank and keeps the own rows of Q.
 """
 
 from __future__ import annotations
@@ -19,16 +25,17 @@ from __future__ import annotations
 import torch
 
 from ..config import matmul_precision
+from ..parallel.mesh import all_reduce_sum, col_sumsq
 from .contract import _CHUNK, gram
 from .spmm.operator import _pet, dot
 
 
-def _chol_qr_once(X, acc_dtype):
+def _chol_qr_once(X, acc_dtype, mesh=None):
     n, b = X.shape
     # The Gram pins the factorization's entire accuracy: full FP32 on the
     # card whatever the ambient matmul precision (never TF32).
     with matmul_precision("highest"):
-        G = gram(X, X, acc_dtype=acc_dtype)
+        G = gram(X, X, acc_dtype=acc_dtype, mesh=mesh)
     eps = torch.finfo(acc_dtype).eps
     tiny = torch.finfo(acc_dtype).tiny
     # torch's Cholesky raises on failure where JAX's returns NaN; the _ex
@@ -64,7 +71,7 @@ def _chol_qr_once(X, acc_dtype):
     return Q, R
 
 
-def cholqr(X, passes: int = 2):
+def cholqr(X, passes: int = 2, mesh=None):
     """CholeskyQR with `passes` refinement sweeps. Returns (Q, R) with
     X = Q @ R, R upper-triangular (product of per-pass factors).
 
@@ -76,29 +83,37 @@ def cholqr(X, passes: int = 2):
     R = R̂·D)."""
     acc = _pet(X.dtype)
     Xa = X.to(acc)
-    d = torch.sqrt(torch.sum(Xa * Xa, dim=0))
+    d = torch.sqrt(col_sumsq(Xa, mesh))
     d_safe = torch.where(d > 0, d, torch.ones_like(d))
-    Q, R = _chol_qr_once(X / d_safe.to(X.dtype)[None, :], acc)
+    Q, R = _chol_qr_once(X / d_safe.to(X.dtype)[None, :], acc, mesh)
     R = R * d_safe[None, :]
     for _ in range(passes - 1):
-        Q, R2 = _chol_qr_once(Q, acc)
+        Q, R2 = _chol_qr_once(Q, acc, mesh)
         R = dot(R2, R, acc)
     return Q, R.to(X.dtype)
 
 
-def householder_qr(X):
-    return torch.linalg.qr(X, mode="reduced")
+def householder_qr(X, mesh=None):
+    if mesh is None:
+        return torch.linalg.qr(X, mode="reduced")
+    n = int(all_reduce_sum(
+        torch.tensor([X.shape[0]], dtype=torch.int64, device=mesh.device),
+        mesh))
+    Q, R = torch.linalg.qr(mesh.gather_rows(X, n), mode="reduced")
+    lo, hi = mesh.row_range(n)
+    return Q[lo:hi].contiguous(), R
 
 
-def block_qr(X, method: str = "householder"):
-    """Orthonormalize the columns of the tall-skinny block X.
+def block_qr(X, method: str = "householder", mesh=None):
+    """Orthonormalize the columns of the tall-skinny block X (the rank's
+    rows under ``mesh``).
 
     Returns (Q, R): the reference consumes Q as the next Lanczos block and
     R as the super-/sub-diagonal block B_i of T (RBL.jl:86-88)."""
     if method == "householder":
-        return householder_qr(X)
+        return householder_qr(X, mesh)
     if method == "cholqr2":
-        return cholqr(X, passes=2)
+        return cholqr(X, passes=2, mesh=mesh)
     if method == "cholqr3":
-        return cholqr(X, passes=3)
+        return cholqr(X, passes=3, mesh=mesh)
     raise ValueError(f"unknown qr method: {method}")

@@ -23,6 +23,45 @@ from .operator import LinearOperator, _pet, host_dtype, to_device
 _GATHER_BYTES = 64 * 2**20
 
 
+def ell_arrays(A, dtype=None):
+    """The host (L, n) int32 column ids and values of a scipy matrix's
+    ELLPACK layout (padding slots point at their own row, value 0), the
+    values in ``dtype``'s host dtype (None: the matrix's own)."""
+    import scipy.sparse as sp
+
+    A = sp.csr_matrix(A)
+    n = A.shape[0]
+    row_nnz = np.diff(A.indptr)
+    L = max(int(row_nnz.max()), 1) if n else 1
+    cols = np.tile(np.arange(n, dtype=np.int32), (L, 1))  # self-pad
+    vals = np.zeros((L, n), dtype=host_dtype(dtype, A.dtype))
+    # scatter nonzeros into slot l = position within row, vectorized
+    rows = np.repeat(np.arange(n, dtype=np.int64), row_nnz)
+    slot = np.arange(A.nnz, dtype=np.int64) - A.indptr[rows]
+    cols[slot, rows] = A.indices.astype(np.int32)
+    vals[slot, rows] = A.data
+    return cols, vals
+
+
+def ell_apply(cols, vals, X, nrows):
+    """Σ over the L slots of vals·X[cols] into ``nrows`` output rows,
+    accumulated in ``_pet(X.dtype)``, a chunk of slots at a time.  cols
+    and vals are (L, nrows); X may hold more rows than the output (a
+    rank's rows followed by its ghost rows)."""
+    # accumulate in _pet(X.dtype): a bf16 sum over L~100 slots loses
+    # ~L·2⁻⁸ relative per row — the same upcast as the COO/DIA paths
+    acc_dt = _pet(X.dtype)
+    b = X.shape[1]
+    out = torch.zeros((nrows, b), dtype=acc_dt, device=X.device)
+    L = cols.shape[0]
+    step = max(1, _GATHER_BYTES // max(nrows * b * X.element_size(), 1))
+    for l0 in range(0, L, step):
+        c = cols[l0 : l0 + step]
+        G = X.index_select(0, c.reshape(-1)).reshape(*c.shape, b)
+        out += (vals[l0 : l0 + step, :, None] * G).to(acc_dt).sum(0)
+    return out.to(X.dtype)
+
+
 @dataclasses.dataclass
 class SparseEllOperator(LinearOperator):
     """Symmetric sparse operator in ELLPACK (padded-row) layout.
@@ -54,18 +93,7 @@ class SparseEllOperator(LinearOperator):
         return int(torch.count_nonzero(self.vals))
 
     def apply(self, X):
-        # accumulate in _pet(X.dtype): a bf16 sum over L~100 slots loses
-        # ~L·2⁻⁸ relative per row — the same upcast as the COO/DIA paths
-        acc_dt = _pet(X.dtype)
-        n, b = X.shape
-        out = torch.zeros((n, b), dtype=acc_dt, device=X.device)
-        L = self.cols.shape[0]
-        step = max(1, _GATHER_BYTES // max(n * b * X.element_size(), 1))
-        for l0 in range(0, L, step):
-            c = self.cols[l0 : l0 + step]
-            G = X.index_select(0, c.reshape(-1)).reshape(*c.shape, b)
-            out += (self.vals[l0 : l0 + step, :, None] * G).to(acc_dt).sum(0)
-        return out.to(X.dtype)
+        return ell_apply(self.cols, self.vals, X, X.shape[0])
 
     def diagonal(self):
         # padding slots self-point with value 0, so they contribute nothing
@@ -76,22 +104,10 @@ class SparseEllOperator(LinearOperator):
     def from_scipy(cls, A, dtype=None, device=None):
         """Build from a scipy.sparse matrix (CSR'd internally) on
         ``device`` (default: the CUDA card)."""
-        import scipy.sparse as sp
-
         dev = resolve_device(device)
-        A = sp.csr_matrix(A)
-        n = A.shape[0]
-        row_nnz = np.diff(A.indptr)
-        L = max(int(row_nnz.max()), 1) if n else 1
-        cols = np.tile(np.arange(n, dtype=np.int32), (L, 1))  # self-pad
-        vals = np.zeros((L, n), dtype=host_dtype(dtype, A.dtype))
-        # scatter nonzeros into slot l = position within row, vectorized
-        rows = np.repeat(np.arange(n, dtype=np.int64), row_nnz)
-        slot = np.arange(A.nnz, dtype=np.int64) - A.indptr[rows]
-        cols[slot, rows] = A.indices.astype(np.int32)
-        vals[slot, rows] = A.data
+        cols, vals = ell_arrays(A, dtype)
         return cls(cols=torch.from_numpy(cols).to(dev),
-                   vals=to_device(vals, dtype, dev), _n=n)
+                   vals=to_device(vals, dtype, dev), _n=A.shape[0])
 
     @classmethod
     def from_dense(cls, M, dtype=None, device=None):

@@ -95,7 +95,8 @@ def cast_operator(op, dtype: torch.dtype):
     def cast(v):
         if isinstance(v, torch.Tensor) and v.is_floating_point():
             return v.to(dtype)
-        if dataclasses.is_dataclass(v) and not isinstance(v, type):
+        if (dataclasses.is_dataclass(v) and not isinstance(v, type)
+                and hasattr(v, "apply")):
             return cast_operator(v, dtype)  # a nested operator or factor
         return v
 
@@ -255,11 +256,22 @@ class SparseGramOperator(LinearOperator):
 
     def diagonal(self):
         # diag(BᵀB)_j = Σ_{nnz with col j} val² (rows for the B·Bᵀ side);
-        # COO pad slots carry val 0, so they contribute nothing
-        idx, n = ((self.Bf.rows, self.Bf.shape[0]) if self.left
-                  else (self.Bf.cols, self.Bf.shape[1]))
+        # COO pad slots carry val 0, so they contribute nothing.  Row-banded
+        # factors (parallel/dist_spmm.py) hold LOCAL row ids and global
+        # column ids: the B·Bᵀ side is the rank's own; the BᵀB side sums
+        # every rank's band, then keeps the rank's rows of n.
+        mesh = getattr(self.Bf, "mesh", None)
+        sq = self.Bf.vals * self.Bf.vals
+        if self.left:
+            rows = self.Bf.shape[0] if mesh is None else self.Bf.shape[0] // mesh.size
+            out = torch.zeros((rows,), dtype=self.dtype, device=self.device)
+            return out.index_add_(0, self.Bf.rows.long(), sq)
+        n = self.Bf.shape[1]
         out = torch.zeros((n,), dtype=self.dtype, device=self.device)
-        return out.index_add_(0, idx, self.Bf.vals * self.Bf.vals)
+        out = out.index_add_(0, self.Bf.cols.long(), sq)
+        if mesh is None:
+            return out
+        return mesh.all_reduce_sum(out)[slice(*mesh.row_range(n))]
 
     @classmethod
     def from_scipy(cls, B, dtype=None, left: bool = False, device=None):

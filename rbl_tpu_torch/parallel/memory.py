@@ -30,6 +30,7 @@ def krylov_capacity(
     budget_fraction: float = 0.8,
     free_bytes: int | None = None,
     device=None,
+    n_devices: int = 1,
 ) -> int | None:
     """Max Krylov dimension (columns) the basis buffer can hold in device
     memory.
@@ -37,14 +38,16 @@ def krylov_capacity(
     Mirrors gpu_buffer_size: budget = frac·free − working set, in units of
     one basis block; returns a column count (multiple of block_size),
     or None when free memory is unknown.  ``device`` is read only when
-    ``free_bytes`` is not given."""
+    ``free_bytes`` is not given.  Under a row mesh of ``n_devices`` ranks
+    each holds ⌈n / n_devices⌉ rows of every block."""
     if free_bytes is None:
         free_bytes = device_free_memory(device)
     if free_bytes is None:
         return None
     b = block_size
-    bl_f = n * b * basis_dtype.itemsize
-    bl_d = n * b * compute_dtype.itemsize
+    rows_local = -(-n // n_devices)
+    bl_f = rows_local * b * basis_dtype.itemsize
+    bl_d = rows_local * b * compute_dtype.itemsize
     budget = budget_fraction * free_bytes - 6 * bl_f - 5 * bl_d
     nblocks = int(budget // bl_f) if bl_f else 0
     return max(nblocks, 0) * b
@@ -52,14 +55,14 @@ def krylov_capacity(
 
 def clamp_kryl_dim(cfg_max: int, n: int, block_size: int, basis_dtype,
                    compute_dtype, budget_fraction: float = 0.8, *,
-                   device) -> int:
+                   device, n_devices: int = 1) -> int:
     """Final Krylov cap = min(config cap, n rounded up to b, memory
     capacity)."""
     b = block_size
     cap = min(cfg_max, ((n + b - 1) // b) * b)
     mem = krylov_capacity(
         n, b, basis_dtype, compute_dtype,
-        budget_fraction=budget_fraction, device=device,
+        budget_fraction=budget_fraction, device=device, n_devices=n_devices,
     )
     if mem is not None:
         # mem == 0 is a real answer (zero basis blocks fit), not "unknown":

@@ -27,6 +27,9 @@ Two tiers, as in ``rbl_tpu/solver/basis.py``:
   device through two reused staging buffers (``stream_host_tier``), the
   next panel's copy overlapping the current panel's use.  A store on the
   CPU keeps its panels as plain tensors.
+
+Under a row mesh each rank's store holds its own slab: ``n`` is the
+rank's row count, and nothing here communicates.
 """
 
 from __future__ import annotations

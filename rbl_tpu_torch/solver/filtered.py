@@ -52,6 +52,8 @@ import torch
 from ..config import RBLConfig, matmul_precision
 from ..ops.chebyshev import ChebyshevFilterOperator
 from ..ops.spmm.operator import AffineOperator, as_operator
+from ..parallel.dist_spmm import on_mesh
+from ..parallel.mesh import local_rows
 from .lanczos import LanczosResult, _rayleigh_refine
 from .rbl import rbl
 
@@ -118,7 +120,8 @@ def _presweep_cutoff(op, k: int, pad: int, cfg: RBLConfig, hi: float):
     gen.manual_seed(cfg.seed + 2)
     Qi = random_start_block(op, gen, b, cfg_pre, raw=True)
     store = BasisStore(
-        n, b, max_cols=mpre + b, dtype=cfg_pre.basis_dtype, device=op.device,
+        local_rows(n, cfg.mesh), b, max_cols=mpre + b,
+        dtype=cfg_pre.basis_dtype, device=op.device,
         device_cap_cols=cfg_pre.basis_device_cap_cols,
     )
     _w, _V, T, _bounds, _conv, _nb = lanczos_iteration(
@@ -206,7 +209,8 @@ def rbl_filtered(
             f"which={which!r} not in ('LA', 'SA') — see the docstring for "
             "why LM cannot be filtered directly"
         )
-    base = as_operator(A, dtype=cfg.compute_dtype, device=cfg.device)
+    base = on_mesh(as_operator(A, dtype=cfg.compute_dtype, device=cfg.device),
+                   cfg.mesh)
     n = base.n
     if not (0 < k <= n):
         raise ValueError(f"k={k} out of range for n={n}")
@@ -225,7 +229,7 @@ def rbl_filtered(
 
             gen = torch.Generator(device=op.device)
             gen.manual_seed(cfg.seed + 1)
-            nb = float(spectral_norm_bound(op, gen))
+            nb = float(spectral_norm_bound(op, gen, mesh=cfg.mesh))
             if lo is None:
                 lo = -nb
             if hi is None:
@@ -282,7 +286,7 @@ def rbl_filtered(
             X = res.eigenvectors
             lam_t, res_t = _rayleigh_refine(
                 op, X, torch.zeros((X.shape[1],), dtype=cdt, device=X.device),
-                cdt=cdt, width=b,
+                cdt=cdt, width=b, mesh=cfg.mesh,
             )
             lam = lam_t.cpu().numpy().astype(np.float64)
             true_res = res_t.cpu().numpy()

@@ -47,6 +47,8 @@ from ..ops.spmm.operator import (
     _pet,
     as_operator,
 )
+from ..parallel.dist_spmm import ReplicatedOperator, on_mesh
+from ..parallel.mesh import all_reduce_sum, col_sumsq
 from .lanczos import LanczosResult
 from .rbl import rbl
 
@@ -63,10 +65,10 @@ class PencilInfo:
     inner_iterations: int = 0
 
 
-def _norm_bound(op: LinearOperator, seed: int) -> float:
+def _norm_bound(op: LinearOperator, seed: int, mesh=None) -> float:
     gen = torch.Generator(device=op.device)
     gen.manual_seed(seed)
-    return float(spectral_norm_bound(op, gen))
+    return float(spectral_norm_bound(op, gen, mesh=mesh))
 
 
 def _certify_m_bounds(opB: LinearOperator, cfg: RBLConfig, label: str = "M"
@@ -77,7 +79,7 @@ def _certify_m_bounds(opB: LinearOperator, cfg: RBLConfig, label: str = "M"
     within ‖r‖ of θ — Kato–Temple style), plus a 5% domain margin against
     directions the randomized probe missed.  A lower end that cannot be
     certified positive raises (B must be SPD)."""
-    nbM = _norm_bound(opB, cfg.seed + 3)
+    nbM = _norm_bound(opB, cfg.seed + 3, cfg.mesh)
     if not np.isfinite(nbM) or nbM <= 0:
         raise ValueError(f"{label} appears to be zero or non-finite")
     cfg_m = cfg.replace(
@@ -107,19 +109,20 @@ def _certify_m_bounds(opB: LinearOperator, cfg: RBLConfig, label: str = "M"
     return 0.95 * lo, 1.05 * hi
 
 
-def _pencil_refine(opA, opM, P, Y, cdt, bnorm="M"):
+def _pencil_refine(opA, opM, P, Y, cdt, bnorm="M", mesh=None):
     """x = P·y, then Rayleigh quotients and true residuals against the TRUE
     pencil: λ = xᵀAx/xᵀMx, r = ‖Ax − λMx‖/‖x‖_B, and B-normalized
     eigenvectors X (XᵀBX = I) — B is the mode's inner-product operator: M
     for normal/cayley (ARPACK's M-orthonormal convention), A for buckling
     (where M may be indefinite).  Returns tensors on the operators'
-    device."""
+    device.  Under ``mesh`` Y is the rank's rows and the sums over rows
+    are reduced over the ranks."""
     X = P.apply(Y.to(cdt))
     AX = opA.apply(X)
     MX = opM.apply(X)
     acc = _pet(cdt)
-    num = torch.sum(X.to(acc) * AX.to(acc), dim=0)
-    den = torch.sum(X.to(acc) * MX.to(acc), dim=0)
+    num = all_reduce_sum(torch.sum(X.to(acc) * AX.to(acc), dim=0), mesh)
+    den = all_reduce_sum(torch.sum(X.to(acc) * MX.to(acc), dim=0), mesh)
     if bnorm == "A":
         # buckling: M may be indefinite — only guard an exact-zero den
         dens = torch.where(den != 0, den, torch.ones_like(den))
@@ -130,7 +133,7 @@ def _pencil_refine(opA, opM, P, Y, cdt, bnorm="M"):
     lam = num / dens
     bqs = torch.where(bq > 0, bq, torch.ones_like(bq))  # degenerate guard
     R = AX.to(acc) - MX.to(acc) * lam[None, :]
-    rn = torch.sqrt(torch.sum(R * R, dim=0)) / torch.sqrt(bqs)
+    rn = torch.sqrt(col_sumsq(R, mesh)) / torch.sqrt(bqs)
     Xn = X / torch.sqrt(bqs).to(X.dtype)[None, :]
     return lam, rn, Xn
 
@@ -220,12 +223,15 @@ def rbl_generalized(
 
     Returns a LanczosResult: eigenvalues as TRUE-pencil Rayleigh quotients
     (numpy), eigenvectors B-orthonormal (a tensor on the operators'
-    device), residual_bounds the true ‖A·x − λ·M·x‖/‖x‖_B norms.  With
+    device; under ``cfg.mesh`` the rank's rows, with A and M sharded
+    operators or applied replicated, and the inner MINRES reduced over
+    the ranks), residual_bounds the true ‖A·x − λ·M·x‖/‖x‖_B norms.  With
     return_info=True also returns a PencilInfo(m_bounds, degree,
     approx_err) describing the B-operator series, and under ``sigma`` the
     count of inner solves and their MINRES iterations.
     """
     cfg = cfg or RBLConfig()
+    mesh = cfg.mesh
     if b is not None:
         cfg = cfg.replace(block_size=b)
     which = which.upper()
@@ -245,9 +251,12 @@ def rbl_generalized(
                 "spectral transform is constant/identity)"
             )
     cdt = cfg.compute_dtype
-    opA = as_operator(A, dtype=cdt, device=cfg.device)
-    opM = as_operator(M, dtype=cdt,
-                      device=opA.device if cfg.device is None else cfg.device)
+    if mesh is not None and cfg.device is None:
+        cfg = cfg.replace(device=str(mesh.device))
+    opA = on_mesh(as_operator(A, dtype=cdt, device=cfg.device), mesh)
+    opM = on_mesh(as_operator(
+        M, dtype=cdt, device=opA.device if cfg.device is None else cfg.device),
+        mesh)
     if opA.shape != opM.shape:
         raise ValueError(
             f"A and M shapes differ: {opA.shape} vs {opM.shape}"
@@ -271,21 +280,24 @@ def rbl_generalized(
         # --- P ≈ B^{−1/2} (and, under sigma, Psqrt ≈ B^{1/2}) ---
         Psqrt: Optional[LinearOperator] = None
         counts = {}
-        if isinstance(opB, DiagonalOperator):
-            # exact fast path (lumped/diagonal mass matrices)
-            d = opB.diag.detach().cpu().numpy().astype(np.float64)
+        diagB = opB.base if isinstance(opB, ReplicatedOperator) else opB
+        if isinstance(diagB, DiagonalOperator):
+            # exact fast path (lumped/diagonal mass matrices); under a mesh
+            # P and its root hold the rank's rows of the whole diagonal
+            d = diagB.diag.detach().cpu().numpy().astype(np.float64)
             dmin, dmax = float(d.min()), float(d.max())
             if dmin <= 0:
                 raise ValueError(
                     f"{blabel} has a non-positive diagonal entry "
                     f"({dmin:.3g}) — this mode requires SPD {blabel}"
                 )
+            own = slice(None) if mesh is None else slice(*mesh.row_range(n))
             P: LinearOperator = DiagonalOperator(
-                torch.as_tensor(1.0 / np.sqrt(d), dtype=cdt, device=dev)
+                torch.as_tensor(1.0 / np.sqrt(d[own]), dtype=cdt, device=dev)
             )
             if sigma is not None:
                 Psqrt = DiagonalOperator(
-                    torch.as_tensor(np.sqrt(d), dtype=cdt, device=dev))
+                    torch.as_tensor(np.sqrt(d[own]), dtype=cdt, device=dev))
             lo, hi, deg, aerr = dmin, dmax, 0, 0.0
         else:
             lo = hi = None
@@ -323,7 +335,7 @@ def rbl_generalized(
                 # analytic shift bound ‖S‖ ≤ ‖A‖·‖P‖² ≤ ‖A‖/λmin(M): the
                 # power estimate runs on the CHEAP operator A instead of
                 # ~24 applies of S (each 2·degree SpMMs with M)
-                nb_S = 1.05 * _norm_bound(opA, cfg.seed + 7) / lo
+                nb_S = 1.05 * _norm_bound(opA, cfg.seed + 7, mesh) / lo
             res = _sweep_or_restarted(
                 S, k, cfg, which, v0, max_restarts, norm_bound=nb_S,
             )
@@ -352,7 +364,7 @@ def rbl_generalized(
         # Rayleigh quotients and residuals against the TRUE pencil)
         lam_t, rn_t, X = _pencil_refine(
             opA, opM, P, res.eigenvectors, cdt=cdt,
-            bnorm="A" if mode == "buckling" else "M",
+            bnorm="A" if mode == "buckling" else "M", mesh=mesh,
         )
         lam = lam_t.cpu().numpy().astype(np.float64)
         rn = rn_t.cpu().numpy()
@@ -400,10 +412,10 @@ def rbl_generalized(
             # c_mode comes from dν/dλ at the pole (1 for normal, 1/|σ| for
             # buckling, 1/(2|σ|) for cayley) and ‖A − σM‖ is bounded by
             # power estimates of ‖A‖ and ‖M‖
-            nrmA = _norm_bound(opA, cfg.seed + 5)
+            nrmA = _norm_bound(opA, cfg.seed + 5, mesh)
             if mode == "buckling":
                 # hi bounds λmax(A) here; ‖M‖ needs its own estimate
-                nrmM = _norm_bound(opM, cfg.seed + 6)
+                nrmM = _norm_bound(opM, cfg.seed + 6, mesh)
                 cmode = 1.0 / abs(float(sigma))
             else:
                 nrmM = hi

@@ -72,6 +72,7 @@ from ..ops.eig import (
 from ..ops.qr import block_qr
 from ..ops.reorth import deflate, project_out
 from ..ops.spmm.operator import LinearOperator, _pet, dot
+from ..parallel.mesh import col_sumsq, randn_rows
 from .basis import BasisStore
 
 # Observability: RBL_DEBUG=1 prints solver state transitions (danger /
@@ -170,7 +171,8 @@ def fine_poll_reset_cols(next_poll_cols: int, i_poll: int, b: int,
 @dataclasses.dataclass
 class LanczosResult:
     eigenvalues: np.ndarray                 # (k,), descending by |λ|
-    eigenvectors: Optional[torch.Tensor]    # (n, k) on the operator's device
+    eigenvectors: Optional[torch.Tensor]    # (n, k) on the operator's
+    #   device; under cfg.mesh the rank's rows (RowMesh.gather_rows: all)
     iterations: int                         # number of Lanczos blocks generated
     kryl_dim: int                           # final Krylov dimension used
     converged: bool
@@ -181,17 +183,20 @@ class LanczosResult:
 # step functions
 # ----------------------------------------------------------------------------
 
-def first_step_fn(op: LinearOperator, Qb, cdt, qr_method):
-    """Unrolled first iteration (reference RBL.jl:79-89)."""
+def first_step_fn(op: LinearOperator, Qb, cdt, qr_method, mesh=None):
+    """Unrolled first iteration (reference RBL.jl:79-89).  Under ``mesh``
+    the blocks are the rank's rows; the Gram and the QR reduce over the
+    ranks."""
     Qc = Qb.to(cdt)
     U = op.apply(Qc)
-    Ai = gram(Qc, U)
+    Ai = gram(Qc, U, mesh=mesh)
     U = U - dot(Qc, Ai, _pet(cdt))
-    Qn, Bn = block_qr(U, method=qr_method)
+    Qn, Bn = block_qr(U, method=qr_method, mesh=mesh)
     return Qn.to(Qb.dtype), Bn, Ai
 
 
-def recurrence_step_fn(op: LinearOperator, Qi_b, Qprev_b, Bi, cdt, qr_method):
+def recurrence_step_fn(op: LinearOperator, Qi_b, Qprev_b, Bi, cdt, qr_method,
+                       mesh=None):
     """Three-term block recurrence (reference RBL.jl:97-104):
     U = A·Q_i − Q_{i−1}·B_iᵀ;  A_i = Q_iᵀU;  U −= Q_i·A_i;  Q_{i+1}B_{i+1} = qr(U).
     Promotes the basis-precision blocks to compute precision on entry — the
@@ -200,9 +205,9 @@ def recurrence_step_fn(op: LinearOperator, Qi_b, Qprev_b, Bi, cdt, qr_method):
     Qc = Qi_b.to(cdt)
     Qp = Qprev_b.to(cdt)
     U = op.apply(Qc) - dot(Qp, Bi.T, acc)
-    Ai = gram(Qc, U)
+    Ai = gram(Qc, U, mesh=mesh)
     U = U - dot(Qc, Ai, acc)
-    Qn, Bn = block_qr(U, method=qr_method)
+    Qn, Bn = block_qr(U, method=qr_method, mesh=mesh)
     return Qn.to(Qi_b.dtype), Bn, Ai
 
 
@@ -221,6 +226,7 @@ def _sweep_chunk(
     reorth_pattern,
     loc_passes,
     reorth_passes=1,
+    mesh=None,
 ):
     """``nsteps`` Lanczos iterations between two host reads.
 
@@ -249,27 +255,27 @@ def _sweep_chunk(
         Qc = Qi.to(cdt)
         Qp = Qprev.to(cdt)
         U = op.apply(Qc) - dot(Qp, Bi.T, acc)
-        Ai = gram(Qc, U)
+        Ai = gram(Qc, U, mesh=mesh)
         U = U - dot(Qc, Ai, acc)
         if reorth_pattern[s]:
             # full scrub: project against the whole stored basis (which now
             # includes Q_{j-1}) and the not-yet-stored Q_j
             stored = basis_buf[:, : c + b]
             for _ in range(max(reorth_passes, 1)):
-                U = project_out(stored, U)
-                U = project_out(Qc, U)
+                U = project_out(stored, U, mesh)
+                U = project_out(Qc, U, mesh)
         else:
             # local scrub (reference loc_reorth!'s role): newborn residual
             # orthogonal to its two parents
             for _ in range(loc_passes):
-                U = project_out(Qp, U)
-                U = project_out(Qc, U)
+                U = project_out(Qp, U, mesh)
+                U = project_out(Qc, U, mesh)
         if lock_basis is not None:
             # deflate the newborn residual EVERY step: locked directions
             # re-enter U through A, and a block born between cadence
             # deflations would freeze that content into the basis
-            U = deflate(lock_basis, U)
-        Qnext, Bnext = block_qr(U, method=qr_method)
+            U = deflate(lock_basis, U, mesh)
+        Qnext, Bnext = block_qr(U, method=qr_method, mesh=mesh)
         out.append(Ai)
         out.append(Bnext)
         Qprev, Qi, Bi = Qi, Qnext.to(Qi.dtype), Bnext
@@ -277,7 +283,8 @@ def _sweep_chunk(
     return basis_buf, Qi, Qprev, Bi, TB
 
 
-def _split_step_recur(op: LinearOperator, basis_buf, Qi, Qprev, Bi, col, *, cdt):
+def _split_step_recur(op: LinearOperator, basis_buf, Qi, Qprev, Bi, col, *, cdt,
+                      mesh=None):
     """Archive Qprev at buffer column ``col`` and run ONE three-term-
     recurrence step, halted at the raw residual U (before any
     reorthogonalization or QR).  Returns (U, A_i).
@@ -294,17 +301,17 @@ def _split_step_recur(op: LinearOperator, basis_buf, Qi, Qprev, Bi, col, *, cdt)
     basis_buf[:, col : col + Qprev.shape[1]].copy_(Qprev)
     Qc = Qi.to(cdt)
     U = op.apply(Qc) - dot(Qprev.to(cdt), Bi.T, acc)
-    Ai = gram(Qc, U)
+    Ai = gram(Qc, U, mesh=mesh)
     U = U - dot(Qc, Ai, acc)
     return U, Ai
 
 
-def _split_step_qr(U, lock_basis, *, qr_method, bdt):
+def _split_step_qr(U, lock_basis, *, qr_method, bdt, mesh=None):
     """Finish a split step: deflate the (now host-tier-clean) residual
     against the lock set and orthonormalize it."""
     if lock_basis is not None:
-        U = deflate(lock_basis, U)
-    Qn, Bn = block_qr(U, method=qr_method)
+        U = deflate(lock_basis, U, mesh)
+    Qn, Bn = block_qr(U, method=qr_method, mesh=mesh)
     return Qn.to(bdt), Bn
 
 
@@ -329,7 +336,8 @@ def _finish_host_copy(handle) -> np.ndarray:
     return host.numpy()
 
 
-def _fresh_directions(store, extras, lock_basis, gen, shape, dtype, qr_method):
+def _fresh_directions(store, extras, lock_basis, gen, shape, dtype, qr_method,
+                      mesh=None, n=None):
     """Breakdown recovery: fresh random directions orthogonalized (CGS2 +
     QR) against the WHOLE stored state — device tier, host-offloaded
     panels, the lock set, and the given live ``extras`` blocks.  The reference has no breakdown
@@ -345,17 +353,19 @@ def _fresh_directions(store, extras, lock_basis, gen, shape, dtype, qr_method):
 
     ``extras`` must contain ONLY kept state (Q_i = the new Qprev):
     projecting against the dead chunk-end block as well reinjects whatever
-    polluted it."""
-    Z = torch.randn(shape, generator=gen, dtype=dtype, device=store.buf.device)
+    polluted it.  Under ``mesh`` ``shape`` is the rank's and ``n`` the
+    global row count: the whole (n, w) block is drawn on every rank."""
+    Z = randn_rows(shape[0] if n is None else n, shape[1], gen, dtype,
+                   store.buf.device, mesh)
     for _ in range(2):
-        Z = project_out(store.view(), Z)
+        Z = project_out(store.view(), Z, mesh)
         for panel in store.stream_host_tier():
-            Z = project_out(panel, Z)
+            Z = project_out(panel, Z, mesh)
         if lock_basis is not None:
-            Z = project_out(lock_basis, Z)
+            Z = project_out(lock_basis, Z, mesh)
         for blk in extras:
-            Z = project_out(blk, Z)
-        Z, _ = block_qr(Z, method=qr_method)
+            Z = project_out(blk, Z, mesh)
+        Z, _ = block_qr(Z, method=qr_method, mesh=mesh)
     return Z
 
 
@@ -382,7 +392,8 @@ def _rotate_healthy(Qold, P, *, r0):
     return dot(Qold, P.to(Qold.dtype), _pet(Qold.dtype))[:, :r0]
 
 
-def _repair_partial_block(store, Qprev, Qold, P, lock_basis, gen, *, r0, qr_method):
+def _repair_partial_block(store, Qprev, Qold, P, lock_basis, gen, *, r0, qr_method,
+                          mesh=None, n=None):
     """Partial-breakdown repair: the residual U = Q_old·B lost rank —
     σ_{r0+1..b}(B) sit at the breakdown floor while σ_{1..r0} are healthy.
     QR of a rank-deficient residual orthonormalizes ROUNDING NOISE into the
@@ -396,12 +407,13 @@ def _repair_partial_block(store, Qprev, Qold, P, lock_basis, gen, *, r0, qr_meth
     H = _rotate_healthy(Qold, P, r0=r0)
     Z = _fresh_directions(
         store, (Qprev, H), lock_basis, gen,
-        (Qold.shape[0], Qold.shape[1] - r0), Qold.dtype, qr_method,
+        (Qold.shape[0], Qold.shape[1] - r0), Qold.dtype, qr_method, mesh, n,
     )
     return torch.cat([H, Z], dim=1)
 
 
-def _repair_block(store, Qprev, Qold, B_s, rank, lock_basis, gen, qr_method):
+def _repair_block(store, Qprev, Qold, B_s, rank, lock_basis, gen, qr_method,
+                  mesh=None, n=None):
     """Dispatch a rank-``rank`` coupling-block repair: rank ≥ 1 keeps the
     healthy singular directions (_repair_partial_block); rank == 0
     degenerates to full re-randomization with a zero coupling, exactly the
@@ -409,18 +421,18 @@ def _repair_block(store, Qprev, Qold, B_s, rank, lock_basis, gen, qr_method):
     if rank == 0:
         Qnew = _fresh_directions(
             store, (Qprev,), lock_basis, gen,
-            tuple(Qprev.shape), Qprev.dtype, qr_method,
+            tuple(Qprev.shape), Qprev.dtype, qr_method, mesh, n,
         )
         return Qnew, np.zeros_like(B_s)
     Pf, B_new = _split_coupling(B_s, rank)
     Qnew = _repair_partial_block(
         store, Qprev, Qold, torch.as_tensor(Pf, device=Qold.device),
-        lock_basis, gen, r0=rank, qr_method=qr_method,
+        lock_basis, gen, r0=rank, qr_method=qr_method, mesh=mesh, n=n,
     )
     return Qnew, B_new
 
 
-def _rayleigh_refine(op: LinearOperator, X, theta0, cdt, width=None):
+def _rayleigh_refine(op: LinearOperator, X, theta0, cdt, width=None, mesh=None):
     """Shifted Rayleigh-quotient refinement of converged Ritz values:
     θ = θ₀ + xᵀ(Ax − θ₀x)/xᵀx.  The correction contracts residual-scale
     quantities, so the refined value carries O(eps·|θ|) rounding instead of
@@ -432,18 +444,20 @@ def _rayleigh_refine(op: LinearOperator, X, theta0, cdt, width=None):
 
     ``width`` applies A to at most that many columns at a time (the
     solve's block width, which every operator took during the sweep: the
-    panel layout refuses an X above 8 MB); None applies it to all k."""
+    panel layout refuses an X above 8 MB); None applies it to all k.
+    Under ``mesh`` X is the rank's rows and every sum over rows is reduced
+    over the ranks."""
     Xc = X.to(cdt)
     theta0 = theta0.to(device=Xc.device, dtype=cdt)
     k = Xc.shape[1]
     w = width or max(k, 1)
     AX = torch.cat([op.apply(Xc[:, j : j + w]) for j in range(0, k, w)], dim=1)
     Y = AX - Xc * theta0[None, :]
-    num = torch.diagonal(gram(Xc, Y))
-    den = torch.diagonal(gram(Xc, Xc))
+    num = torch.diagonal(gram(Xc, Y, mesh=mesh))
+    den = torch.diagonal(gram(Xc, Xc, mesh=mesh))
     theta = theta0 + num / den
     R = Y - Xc * (theta - theta0)[None, :]
-    res = torch.sqrt(torch.sum(R * R, dim=0) / den)
+    res = torch.sqrt(col_sumsq(R, mesh) / den)
     return theta, res
 
 
@@ -473,13 +487,22 @@ def random_start_block(op: LinearOperator, gen: torch.Generator, b: int,
     """Randomized start: Q₁ = qr(A·Ω).Q with Ω ~ N(0,1)ⁿˣᵇ drawn from
     ``gen`` (reference RBL.jl:136-137 — note the single power-iteration
     step A·Ω).  ``v0`` optionally seeds Ω's first column (scipy-compat
-    surface).  ``raw=True`` skips the A-multiply (Q₁ = qr(Ω).Q)."""
+    surface).  ``raw=True`` skips the A-multiply (Q₁ = qr(Ω).Q).
+
+    Under ``cfg.mesh`` every rank draws the whole (n, b) Ω and keeps its
+    own rows (the JAX package's sharding constraint on Ω), so the start
+    block equals the single-device one; ``v0`` is global."""
     cdt = cfg.compute_dtype
-    Omega = torch.randn((op.n, b), generator=gen, dtype=cdt, device=op.device)
+    mesh = cfg.mesh
+    Omega = randn_rows(op.n, b, gen, cdt, op.device, mesh)
     if v0 is not None:
+        v0 = torch.as_tensor(v0).reshape(-1)
+        if mesh is not None:
+            lo, hi = mesh.row_range(op.n)
+            v0 = v0[lo:hi]
         Omega[:, 0] = v0.to(device=op.device, dtype=cdt)
     Y = Omega if raw else op.apply(Omega)
-    Q1, _ = block_qr(Y, method=cfg.resolved_qr_method())
+    Q1, _ = block_qr(Y, method=cfg.resolved_qr_method(), mesh=mesh)
     return Q1.to(cfg.basis_dtype)
 
 
@@ -522,6 +545,10 @@ def lanczos_iteration(
     qr_method = cfg.resolved_qr_method()
     eig_bk = {"native": "native", "device": "device"}.get(cfg.eig_backend, "scipy")
     max_kryl = min(cfg.max_kryl_dim, ((n + b - 1) // b) * b)
+    # Under a row mesh the n-sized blocks are the rank's rows, every
+    # contraction over rows is reduced over the ranks, and the host state
+    # below (T, the flags, the polls) is replicated bit for bit.
+    mesh = cfg.mesh
 
     T = BlockTridiagonalT(b, max_cols=max_kryl + b)
     if generator is None:
@@ -548,7 +575,8 @@ def lanczos_iteration(
     else:
         # --- first iteration, unrolled ---
         with timer.section("recurrence"):
-            Qnext, Bnext, Ai = first_step_fn(op, Qi, cdt=cdt, qr_method=qr_method)
+            Qnext, Bnext, Ai = first_step_fn(op, Qi, cdt=cdt,
+                                             qr_method=qr_method, mesh=mesh)
         AB0 = torch.stack([Ai, Bnext.to(Ai.dtype)]).cpu().numpy()  # one transfer
         T.append_diag(AB0[0])
         T.set_subdiag(AB0[1], 0)
@@ -588,7 +616,9 @@ def lanczos_iteration(
         # recurrence triple is (Q_{i+1}, Q_i, B_{i+1}); T's band already
         # includes the edge subdiag written at the end of the saved chunk)
         bdt = store.buf.dtype
-        store.load_snapshot(resume["basis"])
+        basis = np.asarray(resume["basis"])
+        store.load_snapshot(basis if mesh is None
+                            else basis[slice(*mesh.row_range(n))])
         tc = int(resume["T_ncols"])
         T.band[:, :tc] = resume["band"][:, :tc]
         T.ncols = tc
@@ -607,11 +637,15 @@ def lanczos_iteration(
         calm_chunks = int(resume["calm_chunks"])
         pr_stretch = int(resume["pr_stretch"])
 
-        def _dev_arr(x, dt):
-            return torch.as_tensor(np.asarray(x)).to(device=dev, dtype=dt)
+        def _dev_arr(x, dt, rows=False):
+            # the file holds whole (n, b) blocks: a rank keeps its rows
+            x = np.asarray(x)
+            if rows and mesh is not None:
+                x = x[slice(*mesh.row_range(n))]
+            return torch.as_tensor(x).to(device=dev, dtype=dt)
 
-        Qprev = _dev_arr(resume["Q_i"], bdt)
-        dev_state = (_dev_arr(resume["Q_ip1"], bdt), Qprev,
+        Qprev = _dev_arr(resume["Q_i"], bdt, rows=True)
+        dev_state = (_dev_arr(resume["Q_ip1"], bdt, rows=True), Qprev,
                      _dev_arr(resume["B_ip1"], cdt))
         if (resume.get("gen_state") is not None
                 and str(resume.get("gen_device")) == gen.device.type):
@@ -644,7 +678,8 @@ def lanczos_iteration(
             r0 = int(np.sum(sv0 >= thr0))  # may be 0: all σ at the floor
             with timer.section("rerandomize"):
                 Q2, B_new0 = _repair_block(
-                    store, Qprev, Qi, AB0[1], r0, lock_basis, gen, qr_method
+                    store, Qprev, Qi, AB0[1], r0, lock_basis, gen, qr_method,
+                    mesh, n,
                 )
             _dbg(f"partial breakdown at i=1: rank {r0}/{b} — repaired")
             T.set_subdiag(B_new0, 0)
@@ -725,7 +760,8 @@ def lanczos_iteration(
                 while s < S:
                     if reorth_pattern[s]:
                         U, Ai0 = _split_step_recur(
-                            op, buf, Qi_n, Qprev_n, Bi_n, col, cdt=cdt
+                            op, buf, Qi_n, Qprev_n, Bi_n, col, cdt=cdt,
+                            mesh=mesh,
                         )
                         # Panel-major, not pass-major: each host panel
                         # crosses to the device once and is projected
@@ -740,14 +776,15 @@ def lanczos_iteration(
                         # is O(‖QᵢᵀQⱼ‖·eps·‖U‖), far below the CGS2 floor.
                         stored = buf[:, : col + b]
                         for _ in range(npass):
-                            U = project_out(stored, U)
+                            U = project_out(stored, U, mesh)
                         for panel in store.stream_host_tier():
                             for _ in range(npass):
-                                U = project_out(panel, U)
+                                U = project_out(panel, U, mesh)
                         for _ in range(npass):
-                            U = project_out(Qi_n, U)
+                            U = project_out(Qi_n, U, mesh)
                         Q1, B1 = _split_step_qr(
-                            U, lock_basis, qr_method=qr_method, bdt=bdt_
+                            U, lock_basis, qr_method=qr_method, bdt=bdt_,
+                            mesh=mesh,
                         )
                         TBs.append(torch.stack([Ai0, B1.to(Ai0.dtype)]))
                         timer.add("basis_split_steps", 1)
@@ -763,7 +800,7 @@ def lanczos_iteration(
                             cdt=cdt, qr_method=qr_method, nsteps=e - s,
                             reorth_pattern=reorth_pattern[s:e],
                             loc_passes=cfg.loc_reorth_passes,
-                            reorth_passes=npass,
+                            reorth_passes=npass, mesh=mesh,
                         )
                         TBs.append(TBseg)
                         col += (e - s) * b
@@ -776,7 +813,7 @@ def lanczos_iteration(
                     cdt=cdt, qr_method=qr_method, nsteps=S,
                     reorth_pattern=reorth_pattern,
                     loc_passes=cfg.loc_reorth_passes,
-                    reorth_passes=npass,
+                    reorth_passes=npass, mesh=mesh,
                 )
         store.ncols = col0 + S * b
         dev_state = (Qi_n, Qprev_n, Bi_n)
@@ -806,8 +843,18 @@ def lanczos_iteration(
         convergence rewind everything past the poll's basis prefix."""
         nonlocal pending, w_sel, V_sel, bounds, converged, Qprev
         nonlocal fine_poll, next_poll_cols, selective
-        if pending is None or (not block and not pending["future"].done()):
+        if pending is None:
             return
+        if not block:
+            done = pending["future"].done()
+            # The poll's finish is a wall-clock race that differs between
+            # ranks: one rank harvesting (and rewinding, or stopping) while
+            # another runs on would leave a collective unanswered.  Under a
+            # mesh the ranks harvest only when every rank's poll is done.
+            if mesh is not None:
+                done = mesh.agree(done)
+            if not done:
+                return
         with timer.section("eig_wait"):
             w_scr, w_old, full, secs = pending["future"].result()
         if secs is not None:
@@ -1014,6 +1061,7 @@ def lanczos_iteration(
                         Qi_new = _fresh_directions(
                             store, (Qprev,), lock_basis, gen,
                             tuple(Qprev.shape), Qprev.dtype, qr_method,
+                            mesh, n,
                         )
                     # the honest coupling to the re-randomized block is zero
                     dev_state = (Qi_new, Qprev, torch.zeros_like(cur["Bi"]))
@@ -1034,7 +1082,7 @@ def lanczos_iteration(
                 with timer.section("rerandomize"):
                     Qi_new = _fresh_directions(
                         store, (Qprev,), lock_basis, gen,
-                        tuple(Qprev.shape), Qprev.dtype, qr_method,
+                        tuple(Qprev.shape), Qprev.dtype, qr_method, mesh, n,
                     )
                 dev_state = (Qi_new, Qprev, on_device(B_last))
                 i_next = i + 1
@@ -1062,7 +1110,7 @@ def lanczos_iteration(
                 with timer.section("rerandomize"):
                     Qnew, B_new = _repair_block(
                         store, Qprev, Q_jp1, B_s, partial_rank, lock_basis,
-                        gen, qr_method,
+                        gen, qr_method, mesh, n,
                     )
                 _dbg(
                     f"partial breakdown at i={i}: rank {partial_rank}/{b} "
@@ -1280,7 +1328,7 @@ def lanczos_iteration(
                                      dtype=np.uint32),
                         gen_state=gen.get_state().numpy(),
                         gen_device=gen.device.type,
-                    ))
+                    ), mesh=mesh)
             if abort_after is not None and chunks_done >= abort_after:
                 raise SweepAborted(
                     f"fault injection: aborting after {chunks_done} processed "

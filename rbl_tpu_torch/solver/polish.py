@@ -47,14 +47,16 @@ from ..ops.chebyshev import ChebyshevProductFilter
 from ..ops.contract import gram
 from ..ops.qr import block_qr
 from ..ops.spmm.operator import AffineOperator, as_operator, cast_operator, dot
+from ..parallel.dist_spmm import on_mesh, op_mesh
+from ..parallel.mesh import col_sumsq, local_rows, randn_rows
 from .lanczos import LanczosResult
 from .rbl import rbl
 
 
-def _rr_gram(op, X):
+def _rr_gram(op, X, mesh=None):
     """A·X and the (m, m) Rayleigh–Ritz matrix XᵀAX."""
     AX = op.apply(X)
-    return gram(X, AX), AX
+    return gram(X, AX, mesh=mesh), AX
 
 
 def _rotate_dev(X, Y):
@@ -62,7 +64,7 @@ def _rotate_dev(X, Y):
     return dot(X, Y, X.dtype)
 
 
-def _rr_rotate(X, AX, Y, theta):
+def _rr_rotate(X, AX, Y, theta, mesh=None):
     """Rotate the block onto the Ritz vectors and return TRUE absolute
     residual norms ‖A·x_i − θ_i·x_i‖ (the reference's convergence quantity,
     common.jl:56-65 — not the Lanczos bound, which lies once a basis
@@ -70,7 +72,7 @@ def _rr_rotate(X, AX, Y, theta):
     Xr = _rotate_dev(X, Y)
     AXr = _rotate_dev(AX, Y)
     R = AXr - Xr * theta[None, :]
-    return Xr, torch.sqrt(torch.sum(R * R, dim=0))
+    return Xr, torch.sqrt(col_sumsq(R, mesh))
 
 
 def _filter_only(op, X, a, b, degree, fdt=None):
@@ -83,18 +85,21 @@ def _filter_only(op, X, a, b, degree, fdt=None):
     subspace noise this injects (~√d·eps_f32 relative) is repaired by the
     enclosing loop: the post-filter QR and the Rayleigh–Ritz always run in
     X's own (compute) dtype, and that loop switches fdt to the compute
-    dtype once the residuals approach the f32 floor."""
+    dtype once the residuals approach the f32 floor.  Under a row mesh
+    (the operator's) X is the rank's rows and the norms are reduced."""
+    mesh = op_mesh(op)
     xdt = X.dtype
     if fdt is not None and fdt != xdt:
         fop = ChebyshevProductFilter(
             base=cast_operator(op, fdt), a=a.to(fdt), b=b.to(fdt),
-            degree=degree,
+            degree=degree, mesh=mesh,
         )
         Y = fop.apply(X.to(fdt)).to(xdt)
     else:
-        fop = ChebyshevProductFilter(base=op, a=a, b=b, degree=degree)
+        fop = ChebyshevProductFilter(base=op, a=a, b=b, degree=degree,
+                                     mesh=mesh)
         Y = fop.apply(X)
-    nrm = torch.sqrt(torch.sum(Y * Y, dim=0))
+    nrm = torch.sqrt(col_sumsq(Y, mesh))
     return Y / torch.where(nrm > 0, nrm, torch.ones_like(nrm))
 
 
@@ -114,7 +119,7 @@ def _filter_qr(op, X, frozen, a, b, degree, qr_method, fdt=None):
     Y = torch.where(frozen[None, :], X, Y)
     order = torch.argsort((~frozen).to(torch.int8), stable=True)
     inv = torch.argsort(order)
-    Q, _ = block_qr(Y[:, order], method=qr_method)
+    Q, _ = block_qr(Y[:, order], method=qr_method, mesh=op_mesh(op))
     return Q[:, inv]
 
 
@@ -182,8 +187,13 @@ def chebyshev_refine(
     Returns LanczosResult with eigenvalues/eigenvectors/residual_bounds
     for the k wanted pairs (Rayleigh–Ritz values against the true A);
     ``iterations`` counts filter passes.
+
+    Under ``cfg.mesh`` warm_V is global (n rows) or the rank's rows, and
+    the eigenvectors come back as the rank's rows; a checkpoint holds the
+    whole block (rank 0 writes it).
     """
     cfg = cfg or RBLConfig()
+    mesh = cfg.mesh
     which = which.upper()
     if which not in ("LM", "LA", "SA"):
         raise ValueError(f"which={which!r} not in ('LM', 'LA', 'SA')")
@@ -193,8 +203,9 @@ def chebyshev_refine(
 
     timer = timer or null_timer()
     cdt = cfg.compute_dtype
-    base = as_operator(A, dtype=cdt, device=cfg.device)
+    base = on_mesh(as_operator(A, dtype=cdt, device=cfg.device), mesh)
     n = base.n
+    rows = local_rows(n, mesh)  # this rank's rows of every n-sized block
     dev = base.device
     # SA = LA of −A (eigenvectors invariant; values negated back at exit)
     op = base if which != "SA" else AffineOperator.shift(base, -1.0, 0.0)
@@ -211,26 +222,25 @@ def chebyshev_refine(
     with matmul_precision(cfg.matmul_precision):
         r = cfg.block_size if extra_random is None else int(extra_random)
         W = torch.as_tensor(warm_V).to(device=dev, dtype=cdt)
-        if W.ndim != 2 or W.shape[0] != n or W.shape[1] < k:
+        if mesh is not None and W.ndim == 2 and W.shape[0] == n != rows:
+            W = W[slice(*mesh.row_range(n))]
+        if W.ndim != 2 or W.shape[0] != rows or W.shape[1] < k:
             raise ValueError(
-                f"warm_V must be (n={n}, m>={k}), got {tuple(W.shape)}"
+                f"warm_V must be (n={rows}, m>={k}), got {tuple(W.shape)}"
             )
         if r:
             gen = torch.Generator(device=dev)
             gen.manual_seed(cfg.seed * 1_000_003 + 104729)
-            W = torch.cat(
-                [W, torch.randn((n, r), generator=gen, dtype=cdt, device=dev)],
-                dim=1,
-            )
+            W = torch.cat([W, randn_rows(n, r, gen, cdt, dev, mesh)], dim=1)
         m = int(W.shape[1])
         # entry orthonormalization: column-normalize first so duplicate /
         # garbage warm columns degrade into noise directions instead of
         # sinking the Cholesky (same rationale as _filter_qr)
-        nrm = torch.sqrt(torch.sum(W * W, dim=0))
+        nrm = torch.sqrt(col_sumsq(W, mesh))
         W = W / torch.where(nrm > 0, nrm, torch.ones_like(nrm))
         qr_method = ("cholqr2" if cdt.itemsize >= 8
                      else cfg.resolved_qr_method())
-        X, _ = block_qr(W, method=qr_method)
+        X, _ = block_qr(W, method=qr_method, mesh=mesh)
 
         hi = hi_u
         if hi is None:
@@ -238,7 +248,7 @@ def chebyshev_refine(
 
             gen = torch.Generator(device=dev)
             gen.manual_seed(cfg.seed + 1)
-            hi = float(spectral_norm_bound(op, gen))
+            hi = float(spectral_norm_bound(op, gen, mesh=mesh))
 
         import scipy.linalg
 
@@ -252,7 +262,7 @@ def chebyshev_refine(
         npass = 0
         for p in range(max_passes):
             with timer.section("polish_rr"):
-                H, AX = _rr_gram(op, X)
+                H, AX = _rr_gram(op, X, mesh)
                 Hh = H.cpu().numpy().astype(np.float64)
             if not np.all(np.isfinite(Hh)):
                 raise FloatingPointError(
@@ -270,7 +280,7 @@ def chebyshev_refine(
                 X, res_t = _rr_rotate(
                     X, AX,
                     torch.as_tensor(np.ascontiguousarray(Yh), dtype=cdt, device=dev),
-                    torch.as_tensor(th, dtype=cdt, device=dev),
+                    torch.as_tensor(th, dtype=cdt, device=dev), mesh,
                 )
                 res = res_t.cpu().numpy().astype(np.float64)
             npass = p + 1
@@ -404,10 +414,13 @@ def chebyshev_refine(
                 from ..utils.checkpoint import save_polish_state
 
                 with timer.section("checkpoint"):
-                    save_polish_state(checkpoint_path, X, th, res, p + 1)
+                    save_polish_state(checkpoint_path, X, th, res, p + 1,
+                                      mesh=mesh, n=n)
 
-    if converged and checkpoint_path is not None and os.path.exists(checkpoint_path):
-        os.remove(checkpoint_path)
+    if converged and checkpoint_path is not None:
+        from ..utils.checkpoint import remove_file
+
+        remove_file(checkpoint_path, mesh)
     lam = th[:k].astype(np.float64)
     if which == "SA":
         lam = -lam
@@ -476,15 +489,20 @@ def rbl_polished(
         )
     # one operator for both stages: built once on the device at the
     # polish dtype, cast for the coarse sweep
-    op = as_operator(A, dtype=cfg.compute_dtype, device=cfg.device)
+    op = on_mesh(as_operator(A, dtype=cfg.compute_dtype, device=cfg.device),
+                 cfg.mesh)
     k_coarse = min(k + buffer, op.n)
     # coarse_b: the discovery sweep's block size, decoupled from the
     # polish block.  None keeps the caller's b.
     coarse = rbl(op, k_coarse, cfg=coarse_cfg, b=coarse_b or b,
                  which=which, timer=timer)
     warm_V = coarse.eigenvectors
-    if warm_V is not None and not bool(torch.isfinite(warm_V).all()):
-        warm_V = None  # garbage from the coarse stage: run the polish cold
+    if warm_V is not None:
+        finite = bool(torch.isfinite(warm_V).all())
+        if cfg.mesh is not None:
+            finite = cfg.mesh.agree(finite)  # one rank's rows decide for all
+        if not finite:
+            warm_V = None  # garbage from the coarse stage: run the polish cold
 
     if warm_V is None:
         # cold fallback: the restarted polish path (no warm subspace to

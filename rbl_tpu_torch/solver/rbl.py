@@ -1,12 +1,12 @@
 """User-facing solver entry — the reference's `RBL(A, k, b)` / `RBL_gpu`
 surface (RBL.jl:119-142, RBL_gpu.jl:205-221), as one device-agnostic
-function: the same code runs on the CPU or on one CUDA device, wherever the
+function: the same code runs on the CPU, on one CUDA device, or row-sharded
+over the ranks of ``cfg.mesh`` (``parallel/mesh.py``), wherever the
 operator lives.
 """
 
 from __future__ import annotations
 
-import os
 from typing import Any, Optional
 
 import numpy as np
@@ -14,7 +14,9 @@ import torch
 
 from ..config import RBLConfig, matmul_precision
 from ..ops.spmm.operator import as_operator
+from ..parallel.dist_spmm import on_mesh
 from ..parallel.memory import clamp_kryl_dim
+from ..parallel.mesh import local_rows, mesh_size
 from .basis import BasisStore
 from .lanczos import (
     LanczosResult,
@@ -61,11 +63,17 @@ def rbl(
 
     Returns a LanczosResult with (optionally) the matching Ritz vectors, on
     the operator's device.
+
+    Under ``cfg.mesh`` every rank calls ``rbl`` with its part of a sharded
+    operator (``parallel.dist_spmm``), or with the whole of any other
+    operator, which is then applied replicated; ``v0`` and ``deflate``
+    are global, and the eigenvectors come back as the rank's rows.
     """
     cfg = cfg or RBLConfig()
     if b is not None:
         cfg = cfg.replace(block_size=b)
-    op = as_operator(A, dtype=cfg.compute_dtype, device=cfg.device)
+    op = on_mesh(as_operator(A, dtype=cfg.compute_dtype, device=cfg.device),
+                 cfg.mesh)
     n = op.n
     if not (0 < k <= n):
         raise ValueError(f"k={k} out of range for n={n}")
@@ -84,7 +92,7 @@ def rbl(
             else:
                 gen = torch.Generator(device=op.device)
                 gen.manual_seed(cfg.seed + 1)
-                shift = spectral_norm_bound(op, gen)
+                shift = spectral_norm_bound(op, gen, mesh=cfg.mesh)
             op = AffineOperator.shift(
                 op, 1.0 if which == "LA" else -1.0, shift
             )
@@ -103,6 +111,8 @@ def _rbl_impl(op, k, cfg, compute_eigenvectors, timer, v0=None, deflate=None):
     b = cfg.block_size
     n = op.n
     dev = op.device
+    mesh = cfg.mesh
+    rows = local_rows(n, mesh)  # this rank's rows of every n-sized block
     if v0 is not None:
         v0 = torch.as_tensor(v0).reshape(-1)
         if v0.shape[0] != n:
@@ -123,12 +133,20 @@ def _rbl_impl(op, k, cfg, compute_eigenvectors, timer, v0=None, deflate=None):
         u, sv, _ = np.linalg.svd(lock, full_matrices=False)
         tol = (sv[0] if sv.size else 0.0) * max(lock.shape) * np.finfo(np.float64).eps
         r = int(np.sum(sv > tol))
+        if mesh is not None:
+            u = u[slice(*mesh.row_range(n))]
         lock = (torch.as_tensor(u[:, :r], device=dev).to(cfg.basis_dtype)
                 if r else None)
     max_kryl = clamp_kryl_dim(
         cfg.max_kryl_dim, n, b, cfg.basis_dtype, cfg.compute_dtype,
         budget_fraction=cfg.hbm_budget_fraction, device=dev,
+        n_devices=mesh_size(mesh),
     )  # the same clamp under basis_device_cap_cols, as in the JAX package
+    if mesh is not None:
+        # free memory differs between ranks (ranks may share a card): the
+        # cap every rank sweeps to is the smallest
+        max_kryl = int(mesh.all_reduce_min(
+            torch.tensor([max_kryl], dtype=torch.int64, device=mesh.device)))
     if max_kryl < k:
         # The final Rayleigh–Ritz can produce at most max_kryl pairs;
         # proceeding would silently return fewer than k eigenpairs.
@@ -148,11 +166,11 @@ def _rbl_impl(op, k, cfg, compute_eigenvectors, timer, v0=None, deflate=None):
         from ..ops.qr import block_qr
         from ..ops.reorth import deflate as _deflate
 
-        Qi = _deflate(lock, Qi.to(cfg.compute_dtype))
-        Qi, _ = block_qr(Qi, method=cfg.resolved_qr_method())
+        Qi = _deflate(lock, Qi.to(cfg.compute_dtype), mesh)
+        Qi, _ = block_qr(Qi, method=cfg.resolved_qr_method(), mesh=mesh)
         Qi = Qi.to(cfg.basis_dtype)
     store = BasisStore(
-        n, b, max_cols=max_kryl + b, dtype=cfg.basis_dtype, device=dev,
+        rows, b, max_cols=max_kryl + b, dtype=cfg.basis_dtype, device=dev,
         device_cap_cols=cfg.basis_device_cap_cols,
     )
 
@@ -163,17 +181,20 @@ def _rbl_impl(op, k, cfg, compute_eigenvectors, timer, v0=None, deflate=None):
     # stale state into the next call.
     resume = None
     ck_path = cfg.sweep_checkpoint_path
-    if ck_path is not None and os.path.exists(ck_path):
-        from ..utils.checkpoint import load_sweep_state
+    if ck_path is not None:
+        from ..utils.checkpoint import file_exists, load_sweep_state
 
-        resume = load_sweep_state(ck_path)
+        if file_exists(ck_path, mesh):
+            resume = load_sweep_state(ck_path)
 
     w_sel, V_sel, T, bounds, converged, nblocks = lanczos_iteration(
         op, k, cfg, Qi, store, lock_basis=lock, timer=timer, generator=gen,
         resume=resume,
     )
-    if ck_path is not None and os.path.exists(ck_path):
-        os.remove(ck_path)
+    if ck_path is not None:
+        from ..utils.checkpoint import remove_file
+
+        remove_file(ck_path, mesh)
     if timer is not None and store.device_cap_cols is not None:
         timer.add("basis_host_panels", store.panels_written)
         timer.add("basis_d2h_bytes", store.d2h_bytes)
@@ -191,7 +212,8 @@ def _rbl_impl(op, k, cfg, compute_eigenvectors, timer, v0=None, deflate=None):
         # The TRUE residual norms it computes along the way replace the
         # Lanczos bounds in the result.
         D_t, res_t = _rayleigh_refine(
-            op, V, torch.as_tensor(D), cdt=cfg.compute_dtype, width=b
+            op, V, torch.as_tensor(D), cdt=cfg.compute_dtype, width=b,
+            mesh=mesh,
         )
         D = D_t.cpu().numpy()
         bounds_desc = res_t.cpu().numpy()

@@ -36,6 +36,8 @@ from ..config import RBLConfig, matmul_precision
 from ..ops.qr import block_qr
 from ..ops.reorth import deflate
 from ..ops.spmm.operator import as_operator
+from ..parallel.dist_spmm import on_mesh
+from ..parallel.mesh import all_reduce_sum, col_sumsq, local_rows, randn_rows
 from .basis import BasisStore
 from .lanczos import (
     LanczosResult,
@@ -74,8 +76,8 @@ def _restarted_sweep(op, cfg: RBLConfig, Qi, store: BasisStore, lock_buf,
     # deflate + re-orthonormalize the start block (the reference deflates
     # without renormalizing, restarted.jl:40; we renormalize for a properly
     # scaled T)
-    Qi = deflate(lock_buf, Qi)
-    Qi, _ = block_qr(Qi.to(cdt), method=qr_method)
+    Qi = deflate(lock_buf, Qi, cfg.mesh)
+    Qi, _ = block_qr(Qi.to(cdt), method=qr_method, mesh=cfg.mesh)
     Qi = Qi.to(cfg.basis_dtype)
 
     # restart-boundary checkpoints (RestartState) are this variant's
@@ -144,10 +146,17 @@ def rbl_restarted(
     all-or-nothing bound over every remaining pair (common.jl:56-65) makes
     a sweep run to its cap whenever the trailing pairs are slow.  Polling
     just the next ~2b pairs lets a sweep break as soon as its seeded group
-    converges.  None keeps the reference semantics."""
+    converges.  None keeps the reference semantics.
+
+    Under ``cfg.mesh`` the lock set, the start blocks and the returned
+    eigenvectors are the rank's rows; ``v0`` is global and ``warm_V`` may
+    be global (n rows) or the rank's rows.  A checkpoint holds the whole
+    blocks (rank 0 writes it), and a ``state`` read back from one is cut
+    to the rank's rows."""
     cfg = cfg or RBLConfig()
     cfg = cfg.replace(block_size=b)
-    op = as_operator(A, dtype=cfg.compute_dtype, device=cfg.device)
+    op = on_mesh(as_operator(A, dtype=cfg.compute_dtype, device=cfg.device),
+                 cfg.mesh)
     n = op.n
     if not (0 < k <= n):
         raise ValueError(f"k={k} out of range for n={n}")
@@ -163,7 +172,7 @@ def rbl_restarted(
 
             gen = torch.Generator(device=op.device)
             gen.manual_seed(cfg.seed + 1)
-            shift = spectral_norm_bound(op, gen)
+            shift = spectral_norm_bound(op, gen, mesh=cfg.mesh)
             op = AffineOperator.shift(op, 1.0 if which == "LA" else -1.0,
                                       shift)
         res = _rbl_restarted_impl(
@@ -190,25 +199,30 @@ def rbl_restarted(
     return res
 
 
-def _pad_random(blk, b: int, gen: torch.Generator):
-    """``blk`` widened to b columns with fresh randomness from ``gen``."""
+def _pad_random(blk, b: int, gen: torch.Generator, n=None, mesh=None):
+    """``blk`` widened to b columns with fresh randomness from ``gen``
+    (under ``mesh`` the rank's rows of an (n, ·) draw)."""
     if blk.shape[1] >= b:
         return blk
-    pad = torch.randn((blk.shape[0], b - blk.shape[1]), generator=gen,
-                      dtype=torch.float32, device=blk.device).to(blk.dtype)
+    pad = randn_rows(blk.shape[0] if n is None else n, b - blk.shape[1], gen,
+                     torch.float32, blk.device, mesh).to(blk.dtype)
     return torch.cat([blk, pad], dim=1)
 
 
-def _warm_block(warm_V, start: int, b: int, cfg, device):
+def _warm_block(warm_V, start: int, b: int, cfg, device, n=None):
     """Start block from warm_V[:, start:start+b], random-padded to width b.
 
     The sweep entry deflates + re-orthonormalizes (see _restarted_sweep), so
-    raw warm columns are fine here."""
-    blk = torch.as_tensor(warm_V)[:, start : start + b].to(
-        device=device, dtype=cfg.basis_dtype)
+    raw warm columns are fine here.  Under ``cfg.mesh`` a global warm_V
+    (``n`` rows) is cut to the rank's rows."""
+    mesh = cfg.mesh
+    W = torch.as_tensor(warm_V)
+    if mesh is not None and W.shape[0] == n != local_rows(n, mesh):
+        W = W[slice(*mesh.row_range(n))]
+    blk = W[:, start : start + b].to(device=device, dtype=cfg.basis_dtype)
     gen = torch.Generator(device=device)
     gen.manual_seed(cfg.seed * 1_000_003 + 7919 + start)
-    return _pad_random(blk, b, gen)
+    return _pad_random(blk, b, gen, n, mesh)
 
 
 def _rbl_restarted_impl(op, k, cfg, b, max_restarts, timer,
@@ -216,12 +230,14 @@ def _rbl_restarted_impl(op, k, cfg, b, max_restarts, timer,
                         poll_ahead=None):
     n = op.n
     dev = op.device
+    mesh = cfg.mesh
+    rows = local_rows(n, mesh)  # this rank's rows of every n-sized block
     lock_cols = max(k, 1)
     warm_cols = None if warm_V is None else int(torch.as_tensor(warm_V).shape[1])
 
     if state is None:
         if warm_V is not None:
-            Qi = _warm_block(warm_V, 0, b, cfg, dev)
+            Qi = _warm_block(warm_V, 0, b, cfg, dev, n)
         else:
             gen = torch.Generator(device=dev)
             gen.manual_seed(cfg.seed)
@@ -232,7 +248,7 @@ def _rbl_restarted_impl(op, k, cfg, b, max_restarts, timer,
                         f"v0 has length {v0.shape[0]}, expected {n}")
             Qi = random_start_block(op, gen, b, cfg, v0=v0)
         state = RestartState(
-            lock_buf=torch.zeros((n, lock_cols), dtype=cfg.basis_dtype,
+            lock_buf=torch.zeros((rows, lock_cols), dtype=cfg.basis_dtype,
                                  device=dev),
             locked_values=np.zeros(k),
             count=0,
@@ -240,13 +256,16 @@ def _rbl_restarted_impl(op, k, cfg, b, max_restarts, timer,
             Qi=Qi,
         )
     else:
+        if mesh is not None and state.lock_buf.shape[0] == n != rows:
+            own = slice(*mesh.row_range(n))  # a whole state from a file
+            state.lock_buf, state.Qi = state.lock_buf[own], state.Qi[own]
         state.lock_buf = state.lock_buf.to(device=dev, dtype=cfg.basis_dtype)
         state.Qi = state.Qi.to(device=dev, dtype=cfg.basis_dtype)
 
     while state.count < k and state.restarts < max_restarts:
         sweep_cfg = cfg.replace(restart_kryl_dim=state.kryl_dim)
         store = BasisStore(
-            n, b, max_cols=state.kryl_dim + b, dtype=cfg.basis_dtype,
+            rows, b, max_cols=state.kryl_dim + b, dtype=cfg.basis_dtype,
             device=dev, device_cap_cols=cfg.basis_device_cap_cols,
         )
         k_rem = max(k - state.count, 1)
@@ -269,7 +288,8 @@ def _rbl_restarted_impl(op, k, cfg, b, max_restarts, timer,
         if ncomp:
             # ONE batched basis GEMM for all newly locked pairs
             QV = recover_eigvec(store, V[:, :ncomp])
-            nrm = torch.linalg.norm(QV, dim=0)
+            nrm = (torch.linalg.norm(QV, dim=0) if mesh is None
+                   else torch.sqrt(col_sumsq(QV, mesh)))
             QV = QV / torch.where(nrm > 0, nrm, torch.ones_like(nrm))
             # GHOST GATE: on extreme-dominance spectra at low precision,
             # deflation leaks (eps-level) re-amplify by |λ|max/|λ|min per
@@ -282,7 +302,8 @@ def _rbl_restarted_impl(op, k, cfg, b, max_restarts, timer,
             # only each candidate's largest overlap crosses to the host.
             if state.count:
                 locked = state.lock_buf[:, : state.count].to(QV.dtype)
-                ov = (locked.T @ QV).abs().amax(dim=0).cpu().numpy()
+                ov = all_reduce_sum(locked.T @ QV, mesh)
+                ov = ov.abs().amax(dim=0).cpu().numpy()
                 bad = np.nonzero(ov > 0.1)[0]
                 if bad.size:
                     ncomp = int(bad[0])  # keep the clean prefix only
@@ -328,15 +349,16 @@ def _rbl_restarted_impl(op, k, cfg, b, max_restarts, timer,
             state.low_yield_streak = 0
         state.restarts += 1
         if warm_seed:
-            state.Qi = _warm_block(warm_V, state.count, b, cfg, dev)
+            state.Qi = _warm_block(warm_V, state.count, b, cfg, dev, n)
         elif next_start is not None:
             gen = torch.Generator(device=dev)
             gen.manual_seed(cfg.seed * 1_000_003 + state.restarts)
-            state.Qi = _pad_random(next_start, b, gen).to(cfg.basis_dtype)
+            state.Qi = _pad_random(next_start, b, gen, n, mesh).to(
+                cfg.basis_dtype)
         if checkpoint_path is not None:
             from ..utils.checkpoint import save_restart_state
 
-            save_restart_state(checkpoint_path, state)
+            save_restart_state(checkpoint_path, state, mesh=mesh, n=n)
 
     converged = state.count >= k
     # order descending by |λ|

@@ -59,11 +59,18 @@ def _guarded_divide(X, sigma, floor):
     return torch.where(live[None, :], X / safe[None, :], torch.zeros_like(X))
 
 
-def _cross_recover(B, W, sigma, floor, transpose: bool = False):
+def _cross_recover(B, W, sigma, floor, transpose: bool = False, mesh=None):
     """The other singular factor: X = (B·W)/σ (or BᵀW), with σ ≤ floor
-    columns zeroed instead of divided."""
+    columns zeroed instead of divided.  Under ``mesh`` W is the rank's
+    rows of the Gram side: it is gathered whole, and the rank keeps its
+    own rows of X."""
     M = B.T if transpose else B
-    return _guarded_divide(dot(M, W.to(M.dtype), _pet(W.dtype)), sigma, floor)
+    if mesh is not None:
+        W = mesh.gather_rows(W, M.shape[1])
+    X = _guarded_divide(dot(M, W.to(M.dtype), _pet(W.dtype)), sigma, floor)
+    if mesh is not None:
+        X = X[slice(*mesh.row_range(M.shape[0]))]
+    return X
 
 
 def _cross_recover_sparse(Bop, W, sigma, floor):
@@ -105,23 +112,49 @@ def rbl_svd(
     smaller σ are reported as 0 (run f64 to push the floor down).  A
     rank-deficient B makes the Gram singular at σ = 0 and the inner solve
     stalls, as ARPACK's shift-invert does on a singular pencil.
+
+    Under ``cfg.mesh`` a sparse B whose dimensions divide the mesh size
+    runs through a pair of ``ShardedRectCooSpMM`` factors (forward and
+    transpose); any other B is applied replicated.  U and V come back as
+    the rank's rows of each.
     """
     which = which.upper()
     if which not in ("LM", "SM"):
         raise ValueError(f"which={which!r} not in ('LM', 'SM')")
     cfg = cfg or RBLConfig()
     cdt = cfg.compute_dtype
+    mesh = cfg.mesh
+    if mesh is not None and cfg.device is None:
+        cfg = cfg.replace(device=str(mesh.device))
     if hasattr(B, "tocsr"):
         m, n = B.shape
         if not (0 < k <= min(m, n)):
             raise ValueError(f"k={k} out of range for shape {B.shape}")
         left = m < n  # solve the smaller Gram side
-        op = SparseGramOperator.from_scipy(B, dtype=cdt, left=left,
-                                           device=cfg.device)
-        res = _solve_gram(op, k, b, cfg, timer, v0, which)
-        if which == "SM":
-            return _assemble_svd_sm(res, cfg, m, n, left, op=op)
-        return _assemble_svd(res, k, cfg, m, n, left, op=op)
+        op = None
+        if mesh is None:
+            op = SparseGramOperator.from_scipy(B, dtype=cdt, left=left,
+                                               device=cfg.device)
+        elif m % mesh.size == 0 and n % mesh.size == 0:
+            # row-partitioned rectangular COO factors, each all-gathering
+            # its input block; indivisible dims take the dense path below
+            import scipy.sparse as sp
+
+            from ..parallel.dist_spmm import ShardedRectCooSpMM
+
+            Bc = sp.csr_matrix(B)
+            op = SparseGramOperator(
+                Bf=ShardedRectCooSpMM.from_scipy(Bc, mesh, dtype=cdt),
+                Bt=ShardedRectCooSpMM.from_scipy(Bc.T.tocsr(), mesh,
+                                                 dtype=cdt),
+                left=left,
+            )
+        if op is not None:
+            res = _solve_gram(op, k, b, cfg, timer, v0, which)
+            if which == "SM":
+                return _assemble_svd_sm(res, cfg, m, n, left, op=op)
+            return _assemble_svd(res, k, cfg, m, n, left, op=op)
+        B = B.toarray()
     if isinstance(B, torch.Tensor):
         Bd = B.to(cdt) if cfg.device is None else B.to(
             device=resolve_device(cfg.device), dtype=cdt)
@@ -162,24 +195,35 @@ def _assemble_svd_sm(res, cfg, m, n, left, op=None, Bd=None):
     bound on the Gram operator since the solve only saw the small end."""
     from ..ops.eig import spectral_norm_bound
 
+    from ..parallel.mesh import col_sumsq
+
+    mesh = cfg.mesh
     W = res.eigenvectors  # (gram-side, k) orthonormal
+    xmesh = None  # the mesh X's rows are sharded over (sparse factors)
     if Bd is not None:
         M = Bd.T if left else Bd
-        X = dot(M, W.to(M.dtype), _pet(W.dtype))
+        if mesh is not None:  # the whole X from the gathered W
+            W_all = mesh.gather_rows(W, M.shape[1])
+            X = dot(M, W_all.to(M.dtype), _pet(W.dtype))
+        else:
+            X = dot(M, W.to(M.dtype), _pet(W.dtype))
         gop = GramOperator(B=Bd, left=left)
     else:
         cross = op.Bt if left else op.Bf
         X = cross.apply(W.to(cross.dtype))
-        gop = op
-    s = torch.linalg.norm(X.to(torch.float64), dim=0).cpu().numpy()
+        gop, xmesh = op, mesh
+    s = torch.sqrt(col_sumsq(X.to(torch.float64), xmesh)).cpu().numpy()
     gen = torch.Generator(device=gop.device)
     gen.manual_seed(cfg.seed + 2)
-    sigma1 = float(np.sqrt(max(spectral_norm_bound(gop, gen), 0.0)))
+    sigma1 = float(np.sqrt(max(spectral_norm_bound(gop, gen, mesh=xmesh),
+                               0.0)))
     eps = float(torch.finfo(cfg.compute_dtype).eps)
     floor = float(np.sqrt(eps * max(m, n))
                   * max(sigma1, np.finfo(np.float64).tiny))
     st = torch.as_tensor(s, dtype=X.dtype, device=X.device)
     X = _guarded_divide(X, st, floor)
+    if Bd is not None and mesh is not None:
+        X = X[slice(*mesh.row_range(X.shape[0]))]  # the rank's rows
     s = np.where(s > floor, s, 0.0)
     order = np.argsort(-s, kind="stable")  # SVDResult contract: descending
     idx = torch.as_tensor(order, device=W.device)
@@ -216,7 +260,7 @@ def _assemble_svd(res, k, cfg, m, n, left, op=None, Bd=None):
     # left (m<n): W = U, recover V = Bᵀ·U/σ; else W = V, recover U = B·V/σ
     if Bd is not None:
         st = torch.as_tensor(sigma, dtype=Bd.dtype, device=Bd.device)
-        X = _cross_recover(Bd, W, st, floor, transpose=left)
+        X = _cross_recover(Bd, W, st, floor, transpose=left, mesh=cfg.mesh)
     else:
         cross = op.Bt if left else op.Bf
         st = torch.as_tensor(sigma, dtype=op.dtype, device=op.device)

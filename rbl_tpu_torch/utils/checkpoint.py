@@ -21,6 +21,11 @@ not cross: the JAX package's sweep state holds its ``jax.random`` key under
 ``key``.  The port writes a valid key there for that package to resume
 from, and keeps its own ``torch.Generator`` state under ``gen_state`` (with
 ``gen_device``, the kind of device that generator lives on).
+
+Under a row mesh (``mesh=``, a ``parallel.mesh.RowMesh``) a save gathers
+the n-row arrays from every rank (all ranks call it), rank 0 writes the
+same file a single device would, and the ranks wait for the write; a
+resume reads the whole file on every rank and keeps its rows.
 """
 
 from __future__ import annotations
@@ -45,17 +50,58 @@ def _np32(x):
     return a
 
 
-def save_restart_state(path: str, state) -> None:
-    np.savez(
+def _whole(x, mesh, n: int) -> np.ndarray:
+    """The host copy of an n-row array of which this rank holds its rows
+    (the whole of it without a mesh).  A collective under a mesh."""
+    if mesh is None:
+        return _np32(x)
+    t = torch.as_tensor(_np32(x)).to(mesh.device)
+    return _np32(mesh.gather_rows(t, n))
+
+
+def _written(mesh, write) -> None:
+    """Run ``write`` on rank 0 only (every rank without a mesh) and let the
+    ranks go on once the file is in place."""
+    if mesh is None or mesh.rank == 0:
+        write()
+    if mesh is not None:
+        mesh.barrier()
+
+
+def remove_file(path: str, mesh=None) -> None:
+    """Delete a finished solve's checkpoint: rank 0's job under a mesh,
+    behind a barrier on both sides, so that no rank still reads it."""
+    if mesh is not None:
+        mesh.barrier()
+    if (mesh is None or mesh.rank == 0) and os.path.exists(path):
+        os.remove(path)
+    if mesh is not None:
+        mesh.barrier()
+
+
+def file_exists(path: str, mesh=None) -> bool:
+    """Whether the checkpoint exists, agreed by every rank under a mesh
+    (a file seen by some ranks only is not resumed from)."""
+    there = os.path.exists(path)
+    return there if mesh is None else mesh.agree(there)
+
+
+def save_restart_state(path: str, state, mesh=None, n: int | None = None
+                       ) -> None:
+    """The restart-boundary state; under ``mesh`` ``lock_buf`` and ``Qi``
+    are the rank's rows of n."""
+    lock_buf = _whole(state.lock_buf, mesh, n)
+    Qi = _whole(state.Qi, mesh, n)
+    _written(mesh, lambda: np.savez(
         path,
-        lock_buf=_np32(state.lock_buf),
+        lock_buf=lock_buf,
         locked_values=np.asarray(state.locked_values),
         count=np.int64(state.count),
         kryl_dim=np.int64(state.kryl_dim),
-        Qi=_np32(state.Qi),
+        Qi=Qi,
         restarts=np.int64(state.restarts),
         low_yield_streak=np.int64(getattr(state, "low_yield_streak", 0)),
-    )
+    ))
 
 
 def load_restart_state(path: str, device=None):
@@ -79,9 +125,16 @@ def load_restart_state(path: str, device=None):
     )
 
 
-def save_polish_state(path: str, X, theta, res, npass: int) -> None:
+def save_polish_state(path: str, X, theta, res, npass: int, mesh=None,
+                      n: int | None = None) -> None:
     """Atomic pass-boundary checkpoint for chebyshev_refine: the filtered
-    block X (n, m) plus the last Rayleigh–Ritz values/residuals."""
+    block X (n, m) plus the last Rayleigh–Ritz values/residuals (under
+    ``mesh`` X is the rank's rows of n)."""
+    X = _whole(X, mesh, n)
+    _written(mesh, lambda: _save_polish(path, X, theta, res, npass))
+
+
+def _save_polish(path, X, theta, res, npass):
     d = os.path.dirname(os.path.abspath(path)) or "."
     fd, tmp = tempfile.mkstemp(dir=d, suffix=".npz")
     try:
@@ -108,12 +161,25 @@ def load_polish_state(path: str) -> dict:
                 npass=int(z["npass"]))
 
 
-def save_sweep_state(path: str, state: dict) -> None:
+# the n-row entries of a sweep state: a rank holds its rows of each
+_SWEEP_ROWS = ("basis", "Q_ip1", "Q_i")
+
+
+def save_sweep_state(path: str, state: dict, mesh=None) -> None:
     """Atomically persist a mid-sweep checkpoint (lanczos_iteration).
 
     ``state`` carries numpy arrays, tensors and python scalars; the write
     goes through a temp file + rename so a crash mid-save can never leave
-    a torn checkpoint behind."""
+    a torn checkpoint behind.  Under ``mesh`` the n-row entries are the
+    rank's rows (of ``state["n"]``)."""
+    if mesh is not None:
+        state = dict(state)
+        for k in _SWEEP_ROWS:
+            state[k] = _whole(state[k], mesh, int(state["n"]))
+    _written(mesh, lambda: _save_sweep(path, state))
+
+
+def _save_sweep(path, state):
     payload = {}
     for k, v in state.items():
         if isinstance(v, dict):  # B_hist: {iteration: (b, b)}

@@ -32,13 +32,6 @@ _TPU_ONLY_FIELDS = frozenset({
 # Fields that the JAX package validates but nothing of it reads (both
 # packages deflate the restarted sweep every step): dropped.
 _UNREAD_FIELDS = frozenset({"restart_reorth_cadence"})
-# Fields of features not ported yet (the mesh of ``parallel/``), with the JAX
-# package's defaults: a config that leaves them at the default converts,
-# any other raises.
-_NOT_PORTED_DEFAULTS = {
-    "mesh": None,
-    "rows_axis": "rows",
-}
 
 
 def torch_dtype(dt) -> torch.dtype:
@@ -57,19 +50,22 @@ def config_from_fields(fields: dict) -> RBLConfig:
     """An RBLConfig from the fields of the JAX package's RBLConfig (e.g.
     ``dataclasses.asdict(cfg)``), the checkpoint, fault-injection and
     restart knobs included.  Drops the TPU-only fields and the ones nothing
-    reads; raises NotImplementedError for a feature the port does not have
-    yet."""
+    reads.  A JAX ``Mesh`` cannot cross (the port's mesh is a
+    torch.distributed process group): ``mesh`` must be None or a
+    ``parallel.mesh.RowMesh`` the caller built, and anything else raises."""
+    from ..parallel.mesh import RowMesh
+
     kw = {}
     for name, value in fields.items():
         if name in _TPU_ONLY_FIELDS or name in _UNREAD_FIELDS:
             continue
-        if name in _NOT_PORTED_DEFAULTS:
-            if value != _NOT_PORTED_DEFAULTS[name]:
-                raise NotImplementedError(
-                    f"RBLConfig.{name}={value!r}: not ported yet (ROADMAP.md "
-                    "section A)"
-                )
-            continue
+        if name == "mesh" and value is not None and not isinstance(value, RowMesh):
+            raise TypeError(
+                f"RBLConfig.mesh={value!r}: a JAX mesh cannot cross to the "
+                "PyTorch package — build a RowMesh (parallel.mesh."
+                "make_row_mesh) over an initialized process group and pass "
+                "it instead"
+            )
         if name in ("basis_dtype", "compute_dtype"):
             value = torch_dtype(value)
         kw[name] = value
@@ -77,7 +73,7 @@ def config_from_fields(fields: dict) -> RBLConfig:
 
 
 def operator_from_arrays(kind: str, arrays: dict[str, np.ndarray],
-                         static: dict[str, Any], device=None):
+                         static: dict[str, Any], device=None, mesh=None):
     """The port's operator ``kind`` from the JAX operator's array fields
     (``arrays``) and static fields (``static``), on ``device`` (default:
     the CUDA card).
@@ -94,8 +90,23 @@ def operator_from_arrays(kind: str, arrays: dict[str, np.ndarray],
     forward factor's arrays as bf_rows, bf_cols, bf_vals and the
     transpose's as bt_rows, bt_cols, bt_vals; _m, _ncols, left, _chunk).
 
+    The sharded kinds take the JAX operator's GLOBAL banded arrays and a
+    ``mesh`` (a ``parallel.mesh.RowMesh``; ``device`` is then the mesh's),
+    and keep rank ``mesh.rank``'s part: "ShardedBlockSparseOperator"
+    (tile_cols, hcount, rptr, vals, send_idx, diag; _n, H, bm, bk, unroll,
+    caps), "ShardedEllSpMM" (cols, vals, send_idx; _n, caps),
+    "ShardedCooSpMM" (rows, cols, vals, send_idx; _n, caps),
+    "ShardedRectCooSpMM" (rows, cols, vals; _m, _ncols) and
+    "ShardedLaplacian2D" (nx, ny, _dtype).
+
     A ``RestartState`` and a sweep state cross as the .npz files of
     ``utils.checkpoint``, which both packages read and write."""
+    if kind.startswith("Sharded"):
+        from ..parallel.dist_spmm import sharded_from_arrays
+
+        if mesh is None:
+            raise ValueError(f"{kind} needs the mesh of its ranks (mesh=)")
+        return sharded_from_arrays(kind, arrays, static, mesh)
     dev = resolve_device(device)
 
     def t(name):

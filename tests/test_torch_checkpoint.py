@@ -228,7 +228,11 @@ def test_config_from_fields_carries_the_checkpoint_and_restart_knobs():
     # the deflation cadence nothing reads is dropped, not carried
     assert not hasattr(tcfg, "restart_reorth_cadence")
     assert tcfg.basis_dtype == torch.float64
-    with pytest.raises(NotImplementedError):
-        config_from_fields(dict(rows_axis="cols"))
+    # the row-mesh fields: the axis name crosses, a JAX mesh cannot
+    assert config_from_fields(dict(rows_axis="cols")).rows_axis == "cols"
+    from rbl_tpu.parallel.mesh import make_row_mesh
+
+    with pytest.raises(TypeError, match="RowMesh"):
+        config_from_fields(dict(mesh=make_row_mesh(1)))
     with pytest.raises(ValueError, match="sweep_checkpoint_every"):
         rtt.RBLConfig(sweep_checkpoint_every=0)

@@ -303,11 +303,16 @@ def test_config_defaults_and_conversion():
     )))
     assert conv.basis_dtype == torch.bfloat16 and conv.compute_dtype == torch.float32
     assert conv.block_size == 16 and conv.resolved_qr_method() == "cholqr2"
-    # the checkpoint knobs cross; the mesh of parallel/ is not ported yet
+    # the checkpoint knobs and the mesh axis name cross; a JAX mesh cannot
+    # (the port's mesh is a RowMesh over a torch.distributed group)
     assert config_from_fields(dataclasses.asdict(
         jcfg.replace(sweep_checkpoint_path="x"))).sweep_checkpoint_path == "x"
-    with pytest.raises(NotImplementedError):
-        config_from_fields(dataclasses.asdict(jcfg.replace(rows_axis="cols")))
+    assert config_from_fields(dataclasses.asdict(
+        jcfg.replace(rows_axis="cols"))).rows_axis == "cols"
+    from rbl_tpu.parallel.mesh import make_row_mesh
+
+    with pytest.raises(TypeError, match="RowMesh"):
+        config_from_fields(dict(mesh=make_row_mesh(2)))
     with pytest.raises(TypeError):
         rtt.RBLConfig(compute_dtype=np.float32)
 
