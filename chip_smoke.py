@@ -694,7 +694,6 @@ def mesh_worker(argv) -> int:
     its results to out.json."""
     import scipy.sparse as sp
     import torch
-    import torch.distributed as dist
 
     import rbl_tpu_torch as rt
     from rbl_tpu_torch.ops.spmm import bsr
@@ -716,27 +715,24 @@ def mesh_worker(argv) -> int:
                        backend="gloo", timeout_s=120)
     mesh = make_row_mesh(nranks, device="cuda:0")
     print(mesh.describe())
-    # torch.distributed's table lists gloo with CUDA tensors in all_reduce
-    # and broadcast only: all_reduce is used as it is, point-to-point is
-    # staged (it would read device pointers as host memory); the list
-    # all_gather is tried here and reported
+    # gloo's collectives take CUDA tensors, its point-to-point does not
+    # (tools/probe_mesh_transport.py): the ring exchange stages through
+    # pinned host buffers.  The all-reduce and the all-gather the solve
+    # calls are checked here on device tensors first.
     probe = torch.arange(4, dtype=torch.float32, device="cuda:0") + rank
-    red = probe.clone()
-    dist.all_reduce(red)
-    ok_reduce = bool(torch.equal(red.cpu(), torch.arange(4.0) * 2 + 1))
-    try:
-        parts = [torch.empty_like(probe) for _ in range(nranks)]
-        dist.all_gather(parts, probe)
-        gather = "works" if bool(torch.equal(parts[1].cpu(), torch.arange(4.0) + 1)) else "wrong"
-    except RuntimeError as e:
-        gather = f"raises ({str(e).splitlines()[0][:80]})"
-    transport = (f"gloo on cuda:0 shared by {nranks} ranks; all_reduce of CUDA "
-                 f"tensors direct ({'ok' if ok_reduce else 'WRONG'}); "
-                 f"point-to-point and all-gather staged through pinned host "
-                 f"buffers; list all_gather of CUDA tensors {gather}")
+    red = mesh.all_reduce_sum(probe).cpu()
+    both = mesh.gather_rows(probe, 4 * nranks).cpu()
+    ok_reduce = bool(torch.equal(red, torch.arange(4.0) * 2 + 1))
+    ok_gather = bool(torch.equal(both, torch.cat(
+        [torch.arange(4.0) + r for r in range(nranks)])))
+    transport = (f"gloo on cuda:0 shared by {nranks} ranks; all-reduce and "
+                 f"all-gather of CUDA tensors direct ("
+                 f"{'ok' if ok_reduce and ok_gather else 'WRONG'}); "
+                 f"point-to-point staged through pinned host buffers")
     print(transport)
-    if not ok_reduce:
-        raise AssertionError("gloo all_reduce of a CUDA tensor is wrong")
+    if not (ok_reduce and ok_gather):
+        raise AssertionError("gloo all-reduce or all-gather of a CUDA tensor "
+                             "is wrong")
     z = np.load(path)
     A = sp.csr_matrix((z["data"], z["indices"], z["indptr"]),
                       shape=tuple(z["shape"]))

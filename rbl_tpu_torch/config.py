@@ -59,7 +59,7 @@ class RBLConfig:
     seed:
         Seed of the ``torch.Generator`` that draws the random start block
         and every breakdown re-randomization.
-    mesh / rows_axis:
+    mesh:
         Optional ``parallel.mesh.RowMesh`` over which the row dimension
         (n) of the operator, of every Krylov block, of the basis and of
         the lock set is split, one contiguous slab a rank; None means one
@@ -68,9 +68,8 @@ class RBLConfig:
         the rank's rows, and the eigenvectors come back as the rank's
         rows (``RowMesh.gather_rows`` gives the whole).  An operator that
         is not sharded is applied as GSPMD applies a replicated one:
-        all-gather X, apply, keep the own rows.  ``rows_axis`` names the
-        axis, as in the JAX package; the mesh's own ``axis`` is the one
-        read.
+        all-gather X, apply, keep the own rows.  The JAX package's
+        ``rows_axis`` has no counterpart: a RowMesh has one axis.
     device:
         Device that holds the operator and the basis when ``rbl`` builds
         the operator from host data (a scipy or numpy matrix).  None means
@@ -142,7 +141,6 @@ class RBLConfig:
     eig_backend: str = "banded_host"
     seed: int = 0
     mesh: Optional[Any] = None
-    rows_axis: str = "rows"
     device: Optional[str] = None
     hbm_budget_fraction: float = 0.8
     basis_device_cap_cols: Optional[int] = None

@@ -13,11 +13,12 @@ A small symmetric shift (shifted CholeskyQR) guards against breakdown when
 the residual block is numerically rank-deficient — a case the reference never
 handles (SURVEY §5: no breakdown handling).
 
-Under a row mesh (``mesh``) X is the rank's rows.  CholeskyQR reduces its
-b×b Gram and its column norms over the ranks (one all-reduce each), so R
-is replicated and Q keeps the rank's rows.  Householder does what GSPMD
-does with ``jnp.linalg.qr`` of a row-sharded operand: it gathers the
-(n, b) block, factors it on every rank and keeps the own rows of Q.
+Under a row mesh (``mesh``) X is the rank's rows of n.  CholeskyQR
+reduces its b×b Gram and its column norms over the ranks (one all-reduce
+each), so R is replicated and Q keeps the rank's rows.  Householder does
+what GSPMD does with ``jnp.linalg.qr`` of a row-sharded operand: it
+gathers the (n, b) block, factors it on every rank and keeps the own rows
+of Q.
 """
 
 from __future__ import annotations
@@ -25,7 +26,7 @@ from __future__ import annotations
 import torch
 
 from ..config import matmul_precision
-from ..parallel.mesh import all_reduce_sum, col_sumsq
+from ..parallel.mesh import col_sumsq
 from .contract import _CHUNK, gram
 from .spmm.operator import _pet, dot
 
@@ -93,25 +94,27 @@ def cholqr(X, passes: int = 2, mesh=None):
     return Q, R.to(X.dtype)
 
 
-def householder_qr(X, mesh=None):
+def householder_qr(X, mesh=None, n=None):
+    """``torch.linalg.qr``; under ``mesh`` X is the rank's rows of the
+    global row count ``n``."""
     if mesh is None:
         return torch.linalg.qr(X, mode="reduced")
-    n = int(all_reduce_sum(
-        torch.tensor([X.shape[0]], dtype=torch.int64, device=mesh.device),
-        mesh))
+    if n is None:
+        raise ValueError("householder_qr under a mesh needs n, the global "
+                         "row count")
     Q, R = torch.linalg.qr(mesh.gather_rows(X, n), mode="reduced")
     lo, hi = mesh.row_range(n)
     return Q[lo:hi].contiguous(), R
 
 
-def block_qr(X, method: str = "householder", mesh=None):
+def block_qr(X, method: str = "householder", mesh=None, n=None):
     """Orthonormalize the columns of the tall-skinny block X (the rank's
-    rows under ``mesh``).
+    rows of ``n`` under ``mesh``; Householder reads n).
 
     Returns (Q, R): the reference consumes Q as the next Lanczos block and
     R as the super-/sub-diagonal block B_i of T (RBL.jl:86-88)."""
     if method == "householder":
-        return householder_qr(X, mesh)
+        return householder_qr(X, mesh, n)
     if method == "cholqr2":
         return cholqr(X, passes=2, mesh=mesh)
     if method == "cholqr3":

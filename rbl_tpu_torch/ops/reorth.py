@@ -38,7 +38,7 @@ def project_out(basis, W, mesh=None):
 
 
 def partial_reorth(basis, Qi, Qprev, qr_method: str = "householder",
-                   passes: int = 1, mesh=None):
+                   passes: int = 1, mesh=None, n=None):
     """Project the two newest blocks against the stored basis in one fused
     contraction (reference: part_reorth!, RBL.jl:31-48).
 
@@ -46,22 +46,23 @@ def partial_reorth(basis, Qi, Qprev, qr_method: str = "householder",
     updated (Qi, Qprev); Qprev is re-orthonormalized (a projection against a
     basis that has lost orthogonality can grow a block's norm, and storing
     un-normalized blocks compounds that growth).  ``passes=2`` is CGS2
-    against the basis."""
+    against the basis.  Under ``mesh`` the blocks are the rank's rows of
+    ``n``."""
     b = Qi.shape[1]
     W = torch.cat([Qi, Qprev], dim=1)
     for _ in range(passes):
         W = project_out(basis, W, mesh)
-    Qprev_new, _ = block_qr(W[:, b:], method=qr_method, mesh=mesh)
+    Qprev_new, _ = block_qr(W[:, b:], method=qr_method, mesh=mesh, n=n)
     return W[:, :b], Qprev_new
 
 
 def local_reorth(Qi, Qprev, passes: int = 2, qr_method: str = "householder",
-                 mesh=None):
+                 mesh=None, n=None):
     """CGS2: orthogonalize Qi against Qprev and re-orthonormalize, `passes`
     times (reference loc_reorth!'s intended algorithm, RBL.jl:4-13)."""
     for _ in range(passes):
         Qi = project_out(Qprev, Qi, mesh)
-        Qi, _ = block_qr(Qi, method=qr_method, mesh=mesh)
+        Qi, _ = block_qr(Qi, method=qr_method, mesh=mesh, n=n)
     return Qi
 
 

@@ -62,9 +62,8 @@ def _tile_census(A, bm: int, bk: int):
     import scipy.sparse as sp
 
     C = A if isinstance(A, sp.coo_matrix) else sp.coo_matrix(A)
-    n = C.shape[0]
-    nb = -(-n // bm)
-    ncb = -(-n // bk)
+    nb = -(-C.shape[0] // bm)
+    ncb = -(-C.shape[1] // bk)  # a row band's column blocks are global
     key = (C.row // bm).astype(np.int64) * ncb + (C.col // bk)
     ukey = np.unique(key)
     ubr = (ukey // ncb).astype(np.int64)

@@ -41,6 +41,7 @@ from ..ops.spmm.bsr import (
     _NP_DTYPE,
     _RESIDENT_X_BYTES,
     _packed_bsr_from_scipy,
+    _tile_census,
     bsr_spmm_packed,
     bsr_spmm_packed_resident,
     pick_tile_plan,
@@ -338,11 +339,12 @@ class ShardedBlockSparseOperator(LinearOperator):
         return self.vals.device
 
     @staticmethod
-    def plan_from_scipy(A, ndev: int, dtype=torch.float32,
-                        bm: int | None = None, bk: int = 128,
-                        unroll: int | None = None) -> dict:
-        """The banded arrays of every rank (numpy, stacked over ranks as
-        the JAX package lays them out) and the statics."""
+    def _index_plan(A, ndev: int, dtype, bm, bk: int, unroll) -> dict:
+        """Every band's index plan from A's sparsity pattern, no tile
+        values packed: the tile plan, H, the longest band's tile count
+        Tmax and the ghost plan (``caps``,
+        ``send_idx``, ``remaps``) of the column blocks each band's nonzero
+        tiles touch."""
         import scipy.sparse as sp
 
         if dtype not in _NP_DTYPE:
@@ -362,80 +364,90 @@ class ShardedBlockSparseOperator(LinearOperator):
                 "column-block grid"
             )
         npdt = _NP_DTYPE[dtype]
-        tile_cols_g, hcount_g, rptr_g, vals_g, nb, ncb, H = (
-            _packed_bsr_from_scipy(A, bm, bk, unroll, npdt)
-        )
-        nb_local = nb // ndev
-        ncb_local = ncb // ndev
-        nchunks = int(hcount_g.sum())
-
-        # per-band chunk ranges + the global column ids each band touches
-        U = unroll
-        starts = [int(rptr_g[d * nb_local]) for d in range(ndev)]
-        ends = [
-            int(rptr_g[(d + 1) * nb_local]) if d + 1 < ndev else nchunks
-            for d in range(ndev)
-        ]
-        occ_bands, needs = [], []
-        for d in range(ndev):
-            v = vals_g[starts[d] * U : ends[d] * U]
-            occ = v.reshape(v.shape[0], -1).any(axis=1)
-            occ_bands.append(occ)
-            cols_d = tile_cols_g[starts[d] * U : ends[d] * U]
-            needs.append(np.unique(cols_d[occ]))
+        Ac = sp.csr_matrix(A)
+        if not Ac.has_canonical_format:  # (a canonical CSR needs no sort)
+            Ac = Ac.copy()
+            Ac.sum_duplicates()
+        C = Ac.tocoo()
+        key, ukey, _, _, counts, nb, ncb = _tile_census(C, bm, bk)
+        chunks = np.maximum(-(-counts // unroll), 1)
+        nb_local, ncb_local = nb // ndev, ncb // ndev
+        band_chunks = chunks.reshape(ndev, nb_local).sum(axis=1)
+        # a tile is occupied when one of its values is nonzero in dtype
+        nz = C.data.astype(npdt) != 0
+        occ = ukey if nz.all() else np.unique(key[nz])
+        band_of = occ // ncb // nb_local
+        needs = [np.unique(occ[band_of == d] % ncb) for d in range(ndev)]
         caps, _seg_off, send_idx, remaps = _block_ghost_plan(
-            needs, ndev, ncb_local
+            needs, ndev, ncb_local)
+        return dict(
+            _n=n, bm=bm, bk=bk, unroll=unroll, npdt=npdt, H=int(chunks.max()),
+            Tmax=int(band_chunks.max()) * unroll, caps=caps,
+            send_idx=send_idx, remaps=remaps,
         )
 
-        Tmax = max((ends[d] - starts[d]) * U for d in range(ndev))
-        cols_out = np.zeros((ndev, Tmax), np.int32)
-        vals_out = np.zeros((ndev, Tmax, bm, bk), vals_g.dtype)
-        rptr_out = np.zeros((ndev, nb_local), np.int32)
-        hcnt_out = np.zeros((ndev, nb_local), np.int32)
-        for d in range(ndev):
-            lo = d * ncb_local
-            T_d = (ends[d] - starts[d]) * U
-            flat = tile_cols_g[starts[d] * U : ends[d] * U]
-            occ = occ_bands[d]
-            out = np.zeros_like(flat, dtype=np.int32)  # padding → own 0
-            own = occ & (flat >= lo) & (flat < lo + ncb_local)
-            rem = occ & ~own
-            out[own] = flat[own] - lo
-            out[rem] = [remaps[d][int(c)] for c in flat[rem]]
-            cols_out[d, :T_d] = out
-            vals_out[d, :T_d] = vals_g[starts[d] * U : ends[d] * U]
-            rptr_out[d] = (
-                rptr_g[d * nb_local : (d + 1) * nb_local] - starts[d]
-            )
-            hcnt_out[d] = hcount_g[d * nb_local : (d + 1) * nb_local]
-        return dict(
-            tile_cols=cols_out.reshape(-1), hcount=hcnt_out.reshape(-1),
-            rptr=rptr_out.reshape(-1), vals=vals_out.reshape(ndev * Tmax, bm, bk),
-            send_idx=send_idx,
-            diag=sp.csr_matrix(A).diagonal().astype(npdt),
-            _n=n, H=H, bm=bm, bk=bk, unroll=unroll, caps=caps,
-        )
+    @staticmethod
+    def _band_arrays(A, plan: dict, ndev: int, d: int) -> dict:
+        """Band d's packed arrays: its rows of A packed on their own, tile
+        columns remapped to local-extended ids (padding tiles point at the
+        band's own block 0), zero-padded to ``Tmax`` tiles."""
+        import scipy.sparse as sp
+
+        n, bm, bk, U = plan["_n"], plan["bm"], plan["bk"], plan["unroll"]
+        ml, ncb_local = n // ndev, n // (ndev * bk)
+        band = sp.csr_matrix(A)[d * ml : (d + 1) * ml]
+        flat, hcount, rptr, vals_d = _packed_bsr_from_scipy(
+            band, bm, bk, U, plan["npdt"])[:4]
+        lo = d * ncb_local
+        occ = vals_d.reshape(vals_d.shape[0], -1).any(axis=1)
+        cols = np.zeros(flat.shape[0], dtype=np.int32)  # padding → own 0
+        own = occ & (flat >= lo) & (flat < lo + ncb_local)
+        rem = occ & ~own
+        cols[own] = flat[own] - lo
+        cols[rem] = [plan["remaps"][d][int(c)] for c in flat[rem]]
+        Tmax = plan["Tmax"]
+        tile_cols = np.zeros(Tmax, np.int32)
+        tile_cols[: cols.shape[0]] = cols
+        vals = vals_d
+        if vals_d.shape[0] < Tmax:
+            vals = np.zeros((Tmax, bm, bk), vals_d.dtype)
+            vals[: vals_d.shape[0]] = vals_d
+        return dict(tile_cols=tile_cols, hcount=hcount, rptr=rptr, vals=vals,
+                    send_idx=plan["send_idx"][d],
+                    diag=band.diagonal(d * ml).astype(plan["npdt"]))
 
     @classmethod
     def from_plan(cls, plan: dict, mesh: RowMesh):
         """Rank ``mesh.rank``'s operator from the banded arrays of every
-        rank (``plan_from_scipy``'s dict, or the JAX operator's fields)."""
+        rank, stacked over ranks as the JAX operator's fields are."""
         ndev, r = mesh.size, mesh.rank
         nbl = plan["rptr"].shape[0] // ndev
         Tmax = plan["tile_cols"].shape[0] // ndev
         n = int(plan["_n"])
         ml = n // ndev
         diag = plan.get("diag")
+        return cls._from_band(dict(
+            tile_cols=plan["tile_cols"][r * Tmax : (r + 1) * Tmax],
+            hcount=plan["hcount"][r * nbl : (r + 1) * nbl],
+            rptr=plan["rptr"][r * nbl : (r + 1) * nbl],
+            vals=plan["vals"][r * Tmax : (r + 1) * Tmax],
+            send_idx=np.asarray(plan["send_idx"])[r],
+            diag=None if diag is None else np.asarray(diag)[r * ml : (r + 1) * ml],
+        ), plan, mesh)
+
+    @classmethod
+    def _from_band(cls, band: dict, plan: dict, mesh: RowMesh):
+        diag = band["diag"]
         return cls(
-            tile_cols=_rank_tensor(plan["tile_cols"][r * Tmax : (r + 1) * Tmax], mesh),
-            hcount=_rank_tensor(plan["hcount"][r * nbl : (r + 1) * nbl], mesh),
-            rptr=_rank_tensor(plan["rptr"][r * nbl : (r + 1) * nbl], mesh),
-            vals=_rank_tensor(plan["vals"][r * Tmax : (r + 1) * Tmax], mesh),
-            send_idx=_rank_tensor(np.asarray(plan["send_idx"])[r], mesh),
-            diag=(None if diag is None
-                  else _rank_tensor(np.asarray(diag)[r * ml : (r + 1) * ml], mesh)),
-            _n=n, mesh=mesh, H=int(plan["H"]), bm=int(plan["bm"]),
-            bk=int(plan["bk"]), unroll=int(plan["unroll"]),
+            tile_cols=_rank_tensor(band["tile_cols"], mesh),
+            hcount=_rank_tensor(band["hcount"], mesh),
+            rptr=_rank_tensor(band["rptr"], mesh),
+            vals=_rank_tensor(band["vals"], mesh),
+            send_idx=_rank_tensor(band["send_idx"], mesh),
+            diag=None if diag is None else _rank_tensor(diag, mesh),
+            _n=int(plan["_n"]), mesh=mesh, H=int(plan["H"]),
+            bm=int(plan["bm"]), bk=int(plan["bk"]),
+            unroll=int(plan["unroll"]),
             caps=tuple(int(c) for c in plan["caps"]),
         )
 
@@ -445,10 +457,12 @@ class ShardedBlockSparseOperator(LinearOperator):
                    unroll: int | None = None):
         """Build rank ``mesh.rank``'s band of A.  ``bm=None`` (and
         ``unroll=None``) tunes the tile plan (``pick_tile_plan``); n must
-        be divisible by mesh.size·bk and mesh.size·bm."""
-        return cls.from_plan(
-            cls.plan_from_scipy(A, mesh.size, dtype=dtype, bm=bm, bk=bk,
-                                unroll=unroll), mesh)
+        be divisible by mesh.size·bk and mesh.size·bm.  Every rank plans
+        every band's ghosts from A's pattern but packs only its own band's
+        tiles."""
+        plan = cls._index_plan(A, mesh.size, dtype, bm, bk, unroll)
+        return cls._from_band(
+            cls._band_arrays(A, plan, mesh.size, mesh.rank), plan, mesh)
 
     @property
     def ncb_local(self) -> int:

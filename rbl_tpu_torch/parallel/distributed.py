@@ -30,7 +30,7 @@ or by hand, with the address given explicitly::
 
 The backend is NCCL for a CUDA device and gloo for the CPU.  NCCL refuses
 two ranks on one card; ``backend="gloo"`` runs them there, with the
-point-to-point exchanges staged through the host (``RowMesh.staged``).
+point-to-point exchanges staged through the host (``RowMesh.stage_p2p``).
 """
 
 from __future__ import annotations

@@ -16,11 +16,13 @@ gives every rank the same bits (gloo and NCCL both), so a decision that
 reads only replicated state is safe; one that reads a clock, a thread's
 state or free memory goes through ``agree`` or ``all_reduce_min`` first.
 
-Transport.  NCCL moves device tensors.  gloo takes CUDA tensors in
-``all_reduce`` and ``broadcast`` only (torch.distributed's backend table),
-so under gloo the point-to-point exchanges and the all-gathers of a CUDA
-tensor stage through pinned host buffers; ``RowMesh.staged`` names the
-staged collectives and ``RowMesh.describe()`` prints the choice.
+Transport.  NCCL moves device tensors.  gloo's collectives take CUDA
+tensors too (all-reduce, broadcast, both all-gathers and gather, checked
+on the H100 by tools/probe_mesh_transport.py, though the backend table
+lists the first two only), but its point-to-point send reads a CUDA
+tensor's pointer as host memory and fails.  So under gloo a CUDA tensor's
+ring exchange stages through pinned host buffers (``RowMesh.stage_p2p``),
+and ``RowMesh.describe()`` prints the choice.
 """
 
 from __future__ import annotations
@@ -28,6 +30,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Any, Optional
 
+import numpy as np
 import torch
 
 from ..config import resolve_device
@@ -43,15 +46,15 @@ class RowMesh:
     group: Any
     size: int
     rank: int
-    axis: str = "rows"
     device: torch.device = torch.device("cpu")
     backend: str = "gloo"
-    # collectives that stage a CUDA tensor through pinned host memory
-    staged: frozenset = frozenset()
+    # gloo on a card: point-to-point goes through pinned host buffers
+    stage_p2p: bool = False
     # traffic counters of this rank, read by benchmarks and tests
     stats: dict = dataclasses.field(default_factory=lambda: {
-        "all_reduce": 0, "all_gather": 0, "exchange": 0, "agree": 0,
-        "agree_overruled": 0, "staged_bytes": 0, "exchanged_bytes": 0,
+        "all_reduce": 0, "all_gather": 0, "gather_host": 0, "exchange": 0,
+        "agree": 0, "agree_overruled": 0, "staged_bytes": 0,
+        "exchanged_bytes": 0,
     })
 
     # --- layout ----------------------------------------------------------
@@ -85,9 +88,6 @@ class RowMesh:
 
     # --- collectives -----------------------------------------------------
 
-    def _stage(self, t: torch.Tensor, op: str) -> bool:
-        return t.device.type == "cuda" and op in self.staged
-
     def all_reduce_sum(self, t: torch.Tensor) -> torch.Tensor:
         """Σ over ranks of ``t`` (a new tensor; ``t`` is left as it was)."""
         return self._all_reduce(t, torch.distributed.ReduceOp.SUM)
@@ -115,20 +115,45 @@ class RowMesh:
         if x.shape[0] != c:
             xs = x.new_zeros((c, *x.shape[1:]))
             xs[: x.shape[0]] = x
-        staged = self._stage(x, "all_gather")
-        if staged:
-            xs = _pinned_copy(xs)
         xs = xs.contiguous()
         out = xs.new_empty((self.size * c, *x.shape[1:]))
         if self.size == 1:
             out.copy_(xs)
         else:
             dist.all_gather_into_tensor(out, xs, group=self.group)
-        if staged:
-            self.stats["staged_bytes"] += (
-                (xs.numel() + out.numel()) * xs.element_size())
-            out = out.to(x.device)
         return out[:n]
+
+    def gather_rows_host(self, x, n: int):
+        """The global (n, ...) array of every rank's slab of an n-row array,
+        as a host numpy array on rank 0 and None on the others.  Each slab
+        goes to rank 0 alone, one at a time (NCCL: from the device; gloo:
+        from host memory), so no rank holds the whole on its device.
+        Sub-f32 floats travel and arrive as f32."""
+        import torch.distributed as dist
+
+        self.stats["gather_host"] += 1
+        wire = self.device if self.backend == "nccl" else torch.device("cpu")
+        x = torch.as_tensor(x).to(wire)
+        if x.is_floating_point() and x.element_size() < 4:
+            x = x.float()
+        x = x.contiguous()
+        if self.rank != 0:
+            if x.shape[0]:
+                dist.send(x, self._global_rank(0), group=self.group)
+            return None
+        out = None
+        for r in range(self.size):
+            lo, hi = self.row_range(n, r)
+            part = x
+            if r != 0 and hi > lo:
+                part = torch.empty((hi - lo, *x.shape[1:]), dtype=x.dtype,
+                                   device=wire)
+                dist.recv(part, self._global_rank(r), group=self.group)
+            part = part.cpu().numpy()
+            if out is None:
+                out = np.empty((n, *x.shape[1:]), dtype=part.dtype)
+            out[lo:hi] = part
+        return out
 
     def exchange(self, send: torch.Tensor, shift: int) -> torch.Tensor:
         """One circular shift of the ring: send ``send`` to rank
@@ -141,7 +166,7 @@ class RowMesh:
         s = shift % self.size
         if s == 0:
             return send.clone()
-        staged = self._stage(send, "p2p")
+        staged = self.stage_p2p and send.device.type == "cuda"
         src_t = _pinned_copy(send) if staged else send.contiguous()
         recv = torch.empty_like(src_t)
         self.stats["exchanged_bytes"] += src_t.numel() * src_t.element_size()
@@ -180,10 +205,11 @@ class RowMesh:
         return dist.get_global_rank(self.group, r)
 
     def describe(self) -> str:
-        staged = ", ".join(sorted(self.staged)) or "none"
-        return (f"RowMesh(axis={self.axis!r}, size={self.size}, "
-                f"rank={self.rank}, device={self.device}, "
-                f"backend={self.backend}, host-staged: {staged})")
+        p2p = ("staged through pinned host memory" if self.stage_p2p
+               else "direct")
+        return (f"RowMesh(size={self.size}, rank={self.rank}, "
+                f"device={self.device}, backend={self.backend}, "
+                f"point-to-point {p2p})")
 
     def reset_stats(self) -> None:
         for key in self.stats:
@@ -196,19 +222,8 @@ def _pinned_copy(t: torch.Tensor) -> torch.Tensor:
     return h
 
 
-def staged_collectives(backend: str, device: torch.device) -> frozenset:
-    """The collectives that stage a tensor on ``device`` through the host
-    under ``backend``: gloo takes CUDA tensors in all-reduce and broadcast
-    only, so its point-to-point exchanges and all-gathers of CUDA tensors
-    go through pinned host buffers; NCCL and any CPU tensor move as they
-    are."""
-    if backend == "gloo" and torch.device(device).type == "cuda":
-        return frozenset({"p2p", "all_gather"})
-    return frozenset()
-
-
-def make_row_mesh(n_devices: Optional[int] = None, axis: str = "rows",
-                  device=None, group=None) -> RowMesh:
+def make_row_mesh(n_devices: Optional[int] = None, device=None,
+                  group=None) -> RowMesh:
     """The 1-D row mesh over the initialized process group (``group``, or
     the default one; see ``parallel.distributed.initialize_cluster``).
 
@@ -235,8 +250,8 @@ def make_row_mesh(n_devices: Optional[int] = None, axis: str = "rows",
         )
     backend = str(dist.get_backend(group))
     return RowMesh(group=group, size=size, rank=dist.get_rank(group),
-                   axis=axis, device=dev, backend=backend,
-                   staged=staged_collectives(backend, dev))
+                   device=dev, backend=backend,
+                   stage_p2p=backend == "gloo" and dev.type == "cuda")
 
 
 def mesh_size(mesh: Optional[RowMesh]) -> int:

@@ -191,7 +191,7 @@ def first_step_fn(op: LinearOperator, Qb, cdt, qr_method, mesh=None):
     U = op.apply(Qc)
     Ai = gram(Qc, U, mesh=mesh)
     U = U - dot(Qc, Ai, _pet(cdt))
-    Qn, Bn = block_qr(U, method=qr_method, mesh=mesh)
+    Qn, Bn = block_qr(U, method=qr_method, mesh=mesh, n=op.n)
     return Qn.to(Qb.dtype), Bn, Ai
 
 
@@ -207,7 +207,7 @@ def recurrence_step_fn(op: LinearOperator, Qi_b, Qprev_b, Bi, cdt, qr_method,
     U = op.apply(Qc) - dot(Qp, Bi.T, acc)
     Ai = gram(Qc, U, mesh=mesh)
     U = U - dot(Qc, Ai, acc)
-    Qn, Bn = block_qr(U, method=qr_method, mesh=mesh)
+    Qn, Bn = block_qr(U, method=qr_method, mesh=mesh, n=op.n)
     return Qn.to(Qi_b.dtype), Bn, Ai
 
 
@@ -275,7 +275,7 @@ def _sweep_chunk(
             # re-enter U through A, and a block born between cadence
             # deflations would freeze that content into the basis
             U = deflate(lock_basis, U, mesh)
-        Qnext, Bnext = block_qr(U, method=qr_method, mesh=mesh)
+        Qnext, Bnext = block_qr(U, method=qr_method, mesh=mesh, n=op.n)
         out.append(Ai)
         out.append(Bnext)
         Qprev, Qi, Bi = Qi, Qnext.to(Qi.dtype), Bnext
@@ -306,12 +306,13 @@ def _split_step_recur(op: LinearOperator, basis_buf, Qi, Qprev, Bi, col, *, cdt,
     return U, Ai
 
 
-def _split_step_qr(U, lock_basis, *, qr_method, bdt, mesh=None):
+def _split_step_qr(U, lock_basis, *, qr_method, bdt, mesh=None, n=None):
     """Finish a split step: deflate the (now host-tier-clean) residual
-    against the lock set and orthonormalize it."""
+    against the lock set and orthonormalize it (U: the rank's rows of n
+    under ``mesh``)."""
     if lock_basis is not None:
         U = deflate(lock_basis, U, mesh)
-    Qn, Bn = block_qr(U, method=qr_method, mesh=mesh)
+    Qn, Bn = block_qr(U, method=qr_method, mesh=mesh, n=n)
     return Qn.to(bdt), Bn
 
 
@@ -355,8 +356,8 @@ def _fresh_directions(store, extras, lock_basis, gen, shape, dtype, qr_method,
     projecting against the dead chunk-end block as well reinjects whatever
     polluted it.  Under ``mesh`` ``shape`` is the rank's and ``n`` the
     global row count: the whole (n, w) block is drawn on every rank."""
-    Z = randn_rows(shape[0] if n is None else n, shape[1], gen, dtype,
-                   store.buf.device, mesh)
+    n = shape[0] if n is None else n
+    Z = randn_rows(n, shape[1], gen, dtype, store.buf.device, mesh)
     for _ in range(2):
         Z = project_out(store.view(), Z, mesh)
         for panel in store.stream_host_tier():
@@ -365,7 +366,7 @@ def _fresh_directions(store, extras, lock_basis, gen, shape, dtype, qr_method,
             Z = project_out(lock_basis, Z, mesh)
         for blk in extras:
             Z = project_out(blk, Z, mesh)
-        Z, _ = block_qr(Z, method=qr_method, mesh=mesh)
+        Z, _ = block_qr(Z, method=qr_method, mesh=mesh, n=n)
     return Z
 
 
@@ -502,7 +503,7 @@ def random_start_block(op: LinearOperator, gen: torch.Generator, b: int,
             v0 = v0[lo:hi]
         Omega[:, 0] = v0.to(device=op.device, dtype=cdt)
     Y = Omega if raw else op.apply(Omega)
-    Q1, _ = block_qr(Y, method=cfg.resolved_qr_method(), mesh=mesh)
+    Q1, _ = block_qr(Y, method=cfg.resolved_qr_method(), mesh=mesh, n=op.n)
     return Q1.to(cfg.basis_dtype)
 
 
@@ -784,7 +785,7 @@ def lanczos_iteration(
                             U = project_out(Qi_n, U, mesh)
                         Q1, B1 = _split_step_qr(
                             U, lock_basis, qr_method=qr_method, bdt=bdt_,
-                            mesh=mesh,
+                            mesh=mesh, n=op.n,
                         )
                         TBs.append(torch.stack([Ai0, B1.to(Ai0.dtype)]))
                         timer.add("basis_split_steps", 1)

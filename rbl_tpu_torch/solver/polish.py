@@ -119,7 +119,7 @@ def _filter_qr(op, X, frozen, a, b, degree, qr_method, fdt=None):
     Y = torch.where(frozen[None, :], X, Y)
     order = torch.argsort((~frozen).to(torch.int8), stable=True)
     inv = torch.argsort(order)
-    Q, _ = block_qr(Y[:, order], method=qr_method, mesh=op_mesh(op))
+    Q, _ = block_qr(Y[:, order], method=qr_method, mesh=op_mesh(op), n=op.n)
     return Q[:, inv]
 
 
@@ -240,7 +240,7 @@ def chebyshev_refine(
         W = W / torch.where(nrm > 0, nrm, torch.ones_like(nrm))
         qr_method = ("cholqr2" if cdt.itemsize >= 8
                      else cfg.resolved_qr_method())
-        X, _ = block_qr(W, method=qr_method, mesh=mesh)
+        X, _ = block_qr(W, method=qr_method, mesh=mesh, n=n)
 
         hi = hi_u
         if hi is None:

@@ -167,7 +167,8 @@ def _rbl_impl(op, k, cfg, compute_eigenvectors, timer, v0=None, deflate=None):
         from ..ops.reorth import deflate as _deflate
 
         Qi = _deflate(lock, Qi.to(cfg.compute_dtype), mesh)
-        Qi, _ = block_qr(Qi, method=cfg.resolved_qr_method(), mesh=mesh)
+        Qi, _ = block_qr(Qi, method=cfg.resolved_qr_method(), mesh=mesh,
+                         n=op.n)
         Qi = Qi.to(cfg.basis_dtype)
     store = BasisStore(
         rows, b, max_cols=max_kryl + b, dtype=cfg.basis_dtype, device=dev,

@@ -77,7 +77,7 @@ def _restarted_sweep(op, cfg: RBLConfig, Qi, store: BasisStore, lock_buf,
     # without renormalizing, restarted.jl:40; we renormalize for a properly
     # scaled T)
     Qi = deflate(lock_buf, Qi, cfg.mesh)
-    Qi, _ = block_qr(Qi.to(cdt), method=qr_method, mesh=cfg.mesh)
+    Qi, _ = block_qr(Qi.to(cdt), method=qr_method, mesh=cfg.mesh, n=op.n)
     Qi = Qi.to(cfg.basis_dtype)
 
     # restart-boundary checkpoints (RestartState) are this variant's

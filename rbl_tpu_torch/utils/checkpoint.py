@@ -22,9 +22,10 @@ not cross: the JAX package's sweep state holds its ``jax.random`` key under
 from, and keeps its own ``torch.Generator`` state under ``gen_state`` (with
 ``gen_device``, the kind of device that generator lives on).
 
-Under a row mesh (``mesh=``, a ``parallel.mesh.RowMesh``) a save gathers
-the n-row arrays from every rank (all ranks call it), rank 0 writes the
-same file a single device would, and the ranks wait for the write; a
+Under a row mesh (``mesh=``, a ``parallel.mesh.RowMesh``) a save sends
+every rank's rows of the n-row arrays to rank 0's host (all ranks call
+it), rank 0 writes the same file a single device would, and the ranks
+agree on the write's success: a failed write raises on every rank.  A
 resume reads the whole file on every rank and keeps its rows.
 """
 
@@ -50,22 +51,32 @@ def _np32(x):
     return a
 
 
-def _whole(x, mesh, n: int) -> np.ndarray:
-    """The host copy of an n-row array of which this rank holds its rows
-    (the whole of it without a mesh).  A collective under a mesh."""
+def _whole(x, mesh, n: int):
+    """The host copy of an n-row array of which this rank holds its rows:
+    the whole of it without a mesh; under a mesh (a collective) the whole
+    on rank 0 and None on the others."""
     if mesh is None:
         return _np32(x)
-    t = torch.as_tensor(_np32(x)).to(mesh.device)
-    return _np32(mesh.gather_rows(t, n))
+    return mesh.gather_rows_host(x, n)
 
 
 def _written(mesh, write) -> None:
-    """Run ``write`` on rank 0 only (every rank without a mesh) and let the
-    ranks go on once the file is in place."""
-    if mesh is None or mesh.rank == 0:
+    """Run ``write`` on rank 0 only (every rank without a mesh).  Under a
+    mesh the ranks then agree on its success, so a write that fails on
+    rank 0 raises on every rank instead of leaving the others waiting."""
+    if mesh is None:
         write()
-    if mesh is not None:
-        mesh.barrier()
+        return
+    err = None
+    if mesh.rank == 0:
+        try:
+            write()
+        except Exception as e:  # re-raised below, after the agreement
+            err = e
+    if not mesh.agree(err is None):
+        if err is not None:
+            raise err
+        raise RuntimeError("the checkpoint write on rank 0 failed")
 
 
 def remove_file(path: str, mesh=None) -> None:

@@ -52,12 +52,22 @@ def config_from_fields(fields: dict) -> RBLConfig:
     restart knobs included.  Drops the TPU-only fields and the ones nothing
     reads.  A JAX ``Mesh`` cannot cross (the port's mesh is a
     torch.distributed process group): ``mesh`` must be None or a
-    ``parallel.mesh.RowMesh`` the caller built, and anything else raises."""
+    ``parallel.mesh.RowMesh`` the caller built, and anything else raises.
+    A RowMesh has one axis, so ``rows_axis`` is dropped at its default
+    "rows" and raises otherwise."""
     from ..parallel.mesh import RowMesh
 
     kw = {}
     for name, value in fields.items():
         if name in _TPU_ONLY_FIELDS or name in _UNREAD_FIELDS:
+            continue
+        if name == "rows_axis":
+            if value != "rows":
+                raise ValueError(
+                    f"RBLConfig.rows_axis={value!r}: the PyTorch package's "
+                    "RowMesh has a single axis; only the default 'rows' "
+                    "crosses"
+                )
             continue
         if name == "mesh" and value is not None and not isinstance(value, RowMesh):
             raise TypeError(

@@ -164,6 +164,14 @@ def svd_dense():
 # --- the launcher ------------------------------------------------------------
 
 
+GATHER_N = 24 * 24 + 1  # uneven slabs: 289 and 288 rows
+
+
+def gather_block():
+    """The (GATHER_N, 3) block of the checkpoint-gather and QR cases."""
+    return np.random.default_rng(9).standard_normal((GATHER_N, 3))
+
+
 def _free_port() -> int:
     with socket.socket() as s:
         s.bind(("localhost", 0))
@@ -455,6 +463,39 @@ def _solve_suite(mesh, out, inputs, outdir):
         lap24, X, 4, cfg=cfg(block_size=2, tol=1e-7), extra_random=0,
         checkpoint_path=pk), lap24)
     out["ck_polish__left"] = np.asarray(os.path.exists(pk))
+
+    # a save sends every rank's rows to rank 0's host (no all-gather on any
+    # rank; bf16 arrives as f32), and a write that fails on rank 0 raises
+    # on every rank instead of leaving rank 1 waiting
+    from rbl_tpu_torch.utils.checkpoint import save_polish_state
+
+    Xg = torch.from_numpy(gather_block())
+    for case, dt in (("f64", f64), ("bf16", torch.bfloat16)):
+        before = dict(mesh.stats)
+        save_polish_state(os.path.join(outdir, f"gathered_{case}.npz"),
+                          mesh.shard_rows(Xg).to(dt), np.zeros(3), np.zeros(3),
+                          1, mesh=mesh, n=GATHER_N)
+        out[f"ck_gather_{case}__counts"] = np.asarray(
+            [mesh.stats[k] - before[k] for k in ("all_gather", "gather_host")])
+    try:
+        save_polish_state(os.path.join(outdir, "no_such_dir", "p.npz"),
+                          mesh.shard_rows(Xg), np.zeros(3), np.zeros(3), 1,
+                          mesh=mesh, n=GATHER_N)
+        out["ck_fail__raised"] = np.asarray("nothing")
+    except Exception as e:
+        out["ck_fail__raised"] = np.asarray(type(e).__name__)
+
+    # Householder on the mesh gathers the block, so it needs the global n
+    from rbl_tpu_torch.ops.qr import block_qr
+
+    try:
+        block_qr(mesh.shard_rows(Xg), "householder", mesh)
+        out["qr__no_n"] = np.asarray("nothing")
+    except ValueError:
+        out["qr__no_n"] = np.asarray("ValueError")
+    Q, R = block_qr(mesh.shard_rows(Xg), "householder", mesh, n=GATHER_N)
+    out["qr__Q"] = mesh.gather_rows(Q, GATHER_N).numpy()
+    out["qr__R"] = R.numpy()
 
     # the poll race: each eig poll is done at once on rank 0 (run when it
     # is submitted) and only when waited for on rank 1 (run by result()),

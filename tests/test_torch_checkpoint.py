@@ -228,8 +228,12 @@ def test_config_from_fields_carries_the_checkpoint_and_restart_knobs():
     # the deflation cadence nothing reads is dropped, not carried
     assert not hasattr(tcfg, "restart_reorth_cadence")
     assert tcfg.basis_dtype == torch.float64
-    # the row-mesh fields: the axis name crosses, a JAX mesh cannot
-    assert config_from_fields(dict(rows_axis="cols")).rows_axis == "cols"
+    # the row-mesh fields: a RowMesh has one axis, so the JAX default
+    # rows_axis is dropped and any other name raises; a JAX mesh cannot
+    # cross
+    assert not hasattr(tcfg, "rows_axis")
+    with pytest.raises(ValueError, match="rows_axis"):
+        config_from_fields(dict(rows_axis="cols"))
     from rbl_tpu.parallel.mesh import make_row_mesh
 
     with pytest.raises(TypeError, match="RowMesh"):

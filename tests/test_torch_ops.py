@@ -303,12 +303,14 @@ def test_config_defaults_and_conversion():
     )))
     assert conv.basis_dtype == torch.bfloat16 and conv.compute_dtype == torch.float32
     assert conv.block_size == 16 and conv.resolved_qr_method() == "cholqr2"
-    # the checkpoint knobs and the mesh axis name cross; a JAX mesh cannot
-    # (the port's mesh is a RowMesh over a torch.distributed group)
+    # the checkpoint knobs cross; the JAX default rows_axis is dropped (a
+    # RowMesh has one axis) and any other name raises; a JAX mesh cannot
+    # cross (the port's mesh is a RowMesh over a torch.distributed group)
     assert config_from_fields(dataclasses.asdict(
         jcfg.replace(sweep_checkpoint_path="x"))).sweep_checkpoint_path == "x"
-    assert config_from_fields(dataclasses.asdict(
-        jcfg.replace(rows_axis="cols"))).rows_axis == "cols"
+    assert not hasattr(conv, "rows_axis")
+    with pytest.raises(ValueError, match="rows_axis"):
+        config_from_fields(dataclasses.asdict(jcfg.replace(rows_axis="cols")))
     from rbl_tpu.parallel.mesh import make_row_mesh
 
     with pytest.raises(TypeError, match="RowMesh"):

@@ -240,6 +240,43 @@ def test_restart_and_polish_checkpoints_on_the_mesh(ranks):
     assert not bool(ranks[0]["ck_polish__left"])
 
 
+@pytest.mark.parametrize("case", ["f64", "bf16"])
+def test_checkpoint_save_gathers_to_rank_zero_only(case, ranks):
+    """A save on the mesh sends each rank's rows to rank 0's host, with no
+    all-gather on any rank; rank 0's file holds the whole block (bf16
+    upcast to f32, as a single device writes it)."""
+    import torch
+
+    for rk in ranks:
+        assert list(rk[f"ck_gather_{case}__counts"]) == [0, 1]
+    X = J.gather_block()
+    if case == "bf16":
+        X = torch.from_numpy(X).to(torch.bfloat16).float().double().numpy()
+    with np.load(ranks[0]["_outdir"].item() + f"/gathered_{case}.npz") as z:
+        assert z["X"].shape == (J.GATHER_N, 3)
+        assert np.array_equal(z["X"], X)
+
+
+def test_failed_checkpoint_write_raises_on_every_rank(ranks):
+    """The write fails on rank 0 (its directory does not exist): rank 0
+    raises the write's own error and rank 1 raises too, after the ranks
+    agree, instead of waiting for a file that never comes."""
+    assert str(ranks[0]["ck_fail__raised"]) == "FileNotFoundError"
+    assert str(ranks[1]["ck_fail__raised"]) == "RuntimeError"
+
+
+def test_householder_on_the_mesh(ranks):
+    """Householder on row slabs (289 and 288 rows) needs the global n; its
+    Q equals the single-device Q up to column signs and R is replicated."""
+    assert str(ranks[0]["qr__no_n"]) == "ValueError"
+    Q1, R1 = np.linalg.qr(J.gather_block())
+    Q, R = ranks[0]["qr__Q"], ranks[0]["qr__R"]
+    s = np.sign(np.diag(R)) * np.sign(np.diag(R1))
+    np.testing.assert_allclose(Q * s[None, :], Q1, atol=1e-12)
+    np.testing.assert_allclose(R * s[:, None], R1, atol=1e-12)
+    assert ranks[1]["qr__R"].tobytes() == R.tobytes()
+
+
 def test_poll_race_ranks_agree(ranks):
     """Rank 0's polls were done at once, rank 1's only when waited for:
     every non-blocking harvest asked the mesh (an all-reduce MIN of
