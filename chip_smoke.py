@@ -142,6 +142,30 @@ a user calls, and checks the answers:
      lap2d_512_k50_b16 through ShardedLaplacian2D under bench.py's gate;
      the transport (gloo, host-staged point-to-point) and the collectives
      a solve.  A rank's failure or a timeout fails the script.
+ 24. the last two mesh paths.  First, outside the counted window, the
+     unsharded references: phase 17's vibration solve on
+     fem_elasticity_3d(47) (k = b = 8, σ = 0, f64, tol 1e-6, M lumped)
+     with the grid AMG, eigsh(fem47, k=100) at scipy's defaults and
+     svds(k=10) on phase 21's LM factor; then one NCCL rank's sharded K
+     (a ShardedBlockSparseOperator) and AssembledMultigrid.from_grid(K,
+     dims, mesh=, op0=K_sh), one all-reduce a V-cycle, ms a V-cycle on each
+     side.  The counted window runs the mesh paths alone: (a) the fem47
+     solve on one rank with the mesh V-cycle inner: eigenvalues within
+     1e-10 of the unsharded solve's, true residuals ≤ 1e-6·‖K‖ and
+     |XᵀMX − I| < 1e-8 on both; MINRES iterations and all-reduces a solve;
+     fem_elasticity_3d(31)'s solve on one rank, stopped at a Krylov
+     dimension of 48; (b) eigsh(fem47, k=100) with cfg.mesh on one rank:
+     whole numpy arrays, eigenvalues equal bit for bit to the unsharded;
+     (c) svds with cfg.mesh on one rank: s within 1e-8, U and Vh whole and
+     orthonormal to 1e-8; then two gloo ranks sharing the card
+     (``chip_smoke.py --scipy-mesh-worker``, 300 s timeout): B1 on each
+     fem31 f64 band, fem31's vibration solve under the same cap
+     (eigenvalues bitwise equal on both ranks, within 1e-8 of one rank's),
+     eigsh(fem47, k=100) (eigenvalues and whole vectors bitwise equal on
+     both ranks, head 90 within 1e-5 of one rank's) and the svds (s, U and
+     Vh bitwise equal, s within 1e-8 of one rank's).  Then B2 on fem47's K
+     (f64 b=8, one rank) and both entry points on the mesh hierarchy's
+     replicated BSR levels against the plain version, timed.
 
 Phases 11-14, 17, 19, 20 and 22 launch B1/B2 through BlockSparseOperator.apply.
 Phase 14's fem42 polish applies A to k + buffer + random columns at once
@@ -151,8 +175,10 @@ f64, and timed, beside torch.sparse CSR at 48 and 90 columns.  In the
 kernels' record ``launches`` is the count of the path the row's times were
 taken on (phases 4-5 for B1/B2) and ``launches_by_phase`` holds every
 path's own count; phases 11-13, 17, 20 and 22 must launch B1, phase 14
-both B1 (its f32 coarse sweep) and B2, phase 19 one of them, and phase 23
-B2 (one rank) and B1 (each of two ranks).  After
+both B1 (its f32 coarse sweep) and B2, phase 19 one of them, phase 23
+B2 (one rank) and B1 (each of two ranks), and phase 24 both B1 (the
+replicated levels) and B2 (fem47's K) on one rank and B1 on two
+(``launches_by_phase["24 (2 ranks)"]``).  After
 phase 17 each BSR level's product is also timed through torch.sparse CSR
 (the level's nonzeros), and after phase 14 both entry points are timed at
 90 columns too.  The last two lines are the kernels' JSON
@@ -523,8 +549,6 @@ def mesh_solve_cfg(mesh=None, **kw):
 def phase_mesh(card: str, kernels: dict, by_phase: dict, every) -> None:
     """Phase 23: the row mesh on fem47, one rank over NCCL here, then two
     ranks sharing the card over gloo in two spawned processes."""
-    import socket
-
     import torch
 
     import rbl_tpu_torch as rt
@@ -546,11 +570,6 @@ def phase_mesh(card: str, kernels: dict, by_phase: dict, every) -> None:
           f"in {time.perf_counter() - t0:.1f} s")
 
     # --- (a) one rank over NCCL ----------------------------------------------
-    def free_port():
-        with socket.socket() as sk:
-            sk.bind(("localhost", 0))
-            return sk.getsockname()[1]
-
     initialize_cluster(f"localhost:{free_port()}", 1, 0, device="cuda")
     mesh = make_row_mesh(1)
     mesh.all_reduce_sum(torch.zeros(1, device="cuda"))  # NCCL's set-up
@@ -806,6 +825,418 @@ def mesh_worker(argv) -> int:
             band_row=row, band_shape=(
                 f"fem47 band ({hi - lo} rows, {op.comm_blocks_per_apply()} "
                 f"ghost blocks), plan ({op.bm}, {op.unroll}), f32 b=8")), f)
+    return 0
+
+
+VIB_K = 8  # phase 17's vibration solve: k = b = 8, σ = 0, f64, tol 1e-6
+SVD_K = 10  # phase 21's svds call
+# the fem31 legs of phase 24 stop at this Krylov dimension (8 inner solves
+# where the converged run takes 55), so that the two gloo ranks' thousands
+# of host round trips fit the phase's time; both legs take the same cap
+FEM31_KRYL = 48
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as sk:
+        sk.bind(("localhost", 0))
+        return sk.getsockname()[1]
+
+
+def vibration_run(opK, mass, psolve, mesh=None, device: str = "cuda",
+                  max_kryl_dim: int | None = None):
+    """The vibration solve of phases 17 and 24, rbl_generalized(K, M, 8, 8,
+    σ = 0, f64, tol 1e-6) with M lumped and ``psolve`` as the inner
+    preconditioner; K sharded over ``mesh`` when given.  Returns (result, info, wall, max
+    ‖K·x − λ·M·x‖, max |XᵀMX − I|, all-reduces), the checks on the whole
+    X."""
+    import torch
+
+    import rbl_tpu_torch as rt
+
+    f64 = torch.float64
+    opM = rt.DiagonalOperator(torch.as_tensor(mass, dtype=f64, device=device))
+    if mesh is not None:
+        mesh.reset_stats()
+    t0 = time.perf_counter()
+    res, info = rt.rbl_generalized(
+        opK, opM, VIB_K, VIB_K, cfg=rt.RBLConfig(
+            tol=1e-6, device=device, mesh=mesh,
+            **({} if max_kryl_dim is None else dict(max_kryl_dim=max_kryl_dim))),
+        which="LM", sigma=0.0, inner_psolve=psolve, return_info=True)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    reduces = mesh.stats["all_reduce"] if mesh is not None else 0
+    X, KX = res.eigenvectors, opK.apply(res.eigenvectors)
+    if mesh is not None:
+        X, KX = mesh.gather_rows(X, opK.n), mesh.gather_rows(KX, opK.n)
+    lam = torch.as_tensor(res.eigenvalues, dtype=f64, device=X.device)
+    MX = opM.diag[:, None] * X
+    resid = float((KX - MX * lam[None, :]).norm(dim=0).max())
+    orth = float((X.T @ MX - torch.eye(VIB_K, dtype=f64, device=X.device)).abs().max())
+    return res, info, wall, resid, orth, reduces
+
+
+def vibration_line(label: str, res, info, wall, resid, orth, reduces, card: str):
+    its = info.inner_iterations / max(info.inner_solves, 1)
+    print(f"{label} k={VIB_K} b={VIB_K} f64 σ=0 tol 1e-6: wall {wall:.3f} s, "
+          f"{info.inner_solves} inner solves, {its:.1f} MINRES iterations a "
+          f"solve, all-reduces {reduces}, kryl_dim {res.kryl_dim}, converged "
+          f"{res.converged}, λ {res.eigenvalues[0]:.9e}..{res.eigenvalues[-1]:.9e}, "
+          f"max ‖K·x − λ·M·x‖ {resid:.3e}, max |XᵀMX − I| {orth:.3e}  [{card}]")
+
+
+def mesh_scipy_refs(card: str) -> dict:
+    """Phase 24's unsharded references, run before its counted window:
+    fem47's grid AMG and its vibration solve, eigsh(fem47, k=100) and svds
+    on phase 21's factor, none on a mesh.  Then one NCCL rank: fem47's
+    sharded K, its mesh hierarchy, and a V-cycle timed on each side.
+    Returns what the counted window and the kernel rows read."""
+    import torch
+
+    import rbl_tpu_torch as rt
+    from rbl_tpu_torch.ops.eig import spectral_norm_bound
+    from rbl_tpu_torch.ops.spmm import bsr
+    from rbl_tpu_torch.parallel.dist_spmm import ShardedBlockSparseOperator
+    from rbl_tpu_torch.parallel.distributed import initialize_cluster
+    from rbl_tpu_torch.parallel.mesh import make_row_mesh
+    from rbl_tpu_torch.utils.fem import fem_elasticity_3d, lumped_mass
+
+    f64 = torch.float64
+    A = fem_elasticity_3d(47)
+    n, dims = A.shape[0], (47, 48, 48)
+    st = dict(A=A, mass=lumped_mass(47))
+    t0 = time.perf_counter()
+    amg_u = rt.AssembledMultigrid.from_grid(A, dims, dof=3, device="cuda")
+    setup_u = time.perf_counter() - t0
+    opK = amg_u.levels[0].op
+    if not isinstance(opK, bsr.BlockSparseOperator):
+        raise AssertionError(f"fem47 f64 took the {type(opK).__name__} route, not BSR")
+    g = torch.Generator(device="cuda").manual_seed(5)
+    st["normK"] = float(spectral_norm_bound(opK, g, margin=1.0))
+    print(f"(a) fem47 unsharded grid AMG set up in {setup_u:.2f} s ({amg_u.report()}); "
+          f"‖K‖ ≥ {st['normK']:.6f} (24 power steps)")
+    st["base"] = vibration_run(opK, st["mass"], amg_u.psolve)
+    vibration_line("(a) fem47 vibration, unsharded", *st["base"], card)
+    t0 = time.perf_counter()
+    st["eig"] = rt.eigsh(A, k=100, cfg=rt.RBLConfig(device="cuda"))
+    st["eig_wall"] = time.perf_counter() - t0
+    st["Bh"] = dense_factor(15, 0.9 ** torch.arange(2_000, dtype=f64, device="cuda")
+                            ).cpu().numpy()
+    t0 = time.perf_counter()
+    st["svd"] = (*rt.svds(st["Bh"], k=SVD_K, cfg=rt.RBLConfig(device="cuda")),
+                 time.perf_counter() - t0)
+    print(f"(b, c) unsharded: eigsh(fem47 f64 CSR, k=100) {st['eig_wall']:.3f} s, "
+          f"svds(k={SVD_K}) {st['svd'][3]:.3f} s  [{card}]")
+
+    initialize_cluster(f"localhost:{free_port()}", 1, 0, device="cuda")
+    mesh = make_row_mesh(1)
+    mesh.all_reduce_sum(torch.zeros(1, device="cuda"))  # NCCL's set-up
+    t0 = time.perf_counter()
+    K_sh = ShardedBlockSparseOperator.from_scipy(A, mesh, dtype=f64, bm=opK.bm,
+                                                 unroll=opK.unroll)
+    amg_m = rt.AssembledMultigrid.from_grid(A, dims, dof=3, mesh=mesh, op0=K_sh)
+    print(f"(a) {mesh.describe()}; sharded K and the mesh hierarchy set up in "
+          f"{time.perf_counter() - t0:.2f} s ({amg_m.report()})")
+    Xv = torch.randn((n, VIB_K), generator=g, dtype=f64, device="cuda")
+    vc_u = time_ms(lambda: amg_u.psolve(Xv))
+    before = mesh.stats["all_reduce"]
+    vc_m = time_ms(lambda: amg_m.psolve(Xv))
+    per_cycle = (mesh.stats["all_reduce"] - before) / 21  # warm-up + 20
+    if per_cycle != 1:
+        raise AssertionError(f"(a) the mesh V-cycle made {per_cycle} all-reduces a cycle")
+    print(f"(a) ms a V-cycle at b={VIB_K}: {vc_m:.3f} (mesh, one all-reduce) vs "
+          f"{vc_u:.3f} (unsharded)  [{card}]")
+    st.update(mesh=mesh, K_sh=K_sh, amg_m=amg_m)
+    return st
+
+
+def phase_mesh_scipy(st: dict, card: str):
+    """Phase 24's counted window, the mesh paths alone: (a) the fem47
+    vibration pencil on one NCCL rank with the mesh V-cycle, held against
+    the unsharded solve of ``mesh_scipy_refs``, and fem31's capped at
+    ``FEM31_KRYL``; (b) eigsh(fem47, k=100) and (c) svds on phase 21's
+    factor with cfg.mesh; then the same on two gloo ranks sharing the card,
+    spawned as ``chip_smoke.py --scipy-mesh-worker``.  Returns the ranks'
+    records."""
+    import torch
+
+    import rbl_tpu_torch as rt
+    from rbl_tpu_torch.ops.spmm import bsr
+    from rbl_tpu_torch.parallel.dist_spmm import ShardedBlockSparseOperator
+    from rbl_tpu_torch.parallel.distributed import shutdown_cluster
+    from rbl_tpu_torch.utils.fem import fem_elasticity_3d, lumped_mass
+
+    f64 = torch.float64
+    B1, B2 = bsr.bsr_spmm_packed_resident, bsr.bsr_spmm_packed
+    mesh, A, n, normK = st["mesh"], st["A"], st["A"].shape[0], st["normK"]
+
+    # --- (a) the vibration pencil on one NCCL rank -------------------------
+    base = st["base"]
+    sh = vibration_run(st["K_sh"], st["mass"], st["amg_m"].psolve, mesh)
+    vibration_line("(a) fem47 vibration, one rank (mesh V-cycle)", *sh, card)
+    print(f"(a) the one-rank solve launched B1 {B1.launches} (levels 1-2), "
+          f"B2 {B2.launches} (K)")
+    agree = rel_diff(np.asarray(sh[0].eigenvalues), np.asarray(base[0].eigenvalues))
+    for label, (res, _, _, resid, orth, _) in (("unsharded", base), ("one rank", sh)):
+        if not (res.converged and resid <= 1e-6 * normK and orth < 1e-8
+                and np.all(res.eigenvalues > 0)):
+            raise AssertionError(f"(a) fem47 vibration {label}: converged "
+                                 f"{res.converged}, max residual {resid:.3e} "
+                                 f"(bound {1e-6 * normK:.3e}), max |XᵀMX − I| {orth:.3e}")
+    if not agree < 1e-10:
+        raise AssertionError(f"(a) fem47 one rank vs unsharded: {agree:.3e} ≥ 1e-10")
+    its = [r[1].inner_iterations / max(r[1].inner_solves, 1) for r in (base, sh)]
+    print(f"(a) fem47 one rank vs unsharded: eigenvalues max rel {agree:.3e}; MINRES "
+          f"iterations a solve {its[1]:.1f} vs {its[0]:.1f}; all-reduces a solve "
+          f"{sh[5]} (one a V-cycle); walls {sh[2]:.3f} vs {base[2]:.3f} s  [{card}]")
+    del base, sh
+    A31 = fem_elasticity_3d(31)
+    bm31, U31 = bsr.pick_tile_plan(A31)
+    K31 = ShardedBlockSparseOperator.from_scipy(A31, mesh, dtype=f64, bm=bm31,
+                                                unroll=U31)
+    amg31 = rt.AssembledMultigrid.from_grid(A31, (31, 32, 32), dof=3, mesh=mesh,
+                                            op0=K31)
+    one31 = vibration_run(K31, lumped_mass(31), amg31.psolve, mesh,
+                          max_kryl_dim=FEM31_KRYL)
+    vibration_line(f"(a) fem31 vibration, one rank, Krylov cap {FEM31_KRYL}",
+                   *one31, card)
+    w31 = np.asarray(one31[0].eigenvalues)
+    if not (one31[4] < 1e-8 and np.all(w31 > 0)):
+        raise AssertionError(f"(a) fem31 on one rank: max |XᵀMX − I| {one31[4]:.3e}, "
+                             f"λ {w31}")
+    del K31, amg31, one31
+    torch.cuda.empty_cache()
+
+    # --- (b) eigsh(fem47, k=100), scipy's defaults, on one rank ------------
+    w_u, V_u = st["eig"]
+    t0 = time.perf_counter()
+    w_m, V_m = rt.eigsh(A, k=100, cfg=rt.RBLConfig(device="cuda", mesh=mesh))
+    wall = time.perf_counter() - t0
+    if not (isinstance(V_m, np.ndarray) and V_m.shape == (n, 100)
+            and w_m.tobytes() == w_u.tobytes()):
+        raise AssertionError("(b) eigsh(fem47) on one rank: not whole numpy "
+                             "arrays, or eigenvalues not equal bit for bit")
+    print(f"(b) eigsh(fem47 f64 CSR, k=100) scipy defaults: unsharded {st['eig_wall']:.3f} "
+          f"s, cfg.mesh one rank {wall:.3f} s; eigenvalues equal bit for "
+          f"bit, vectors {'equal bit for bit' if V_m.tobytes() == V_u.tobytes() else 'differ'}"
+          f"; whole ({V_m.shape[0]}, {V_m.shape[1]}) {V_m.dtype} on the rank's host  [{card}]")
+    head47 = w_u[::-1][:MESH_HEAD].copy()
+    del V_m, V_u
+
+    # --- (c) svds on phase 21's factor, on one rank -------------------------
+    t0 = time.perf_counter()
+    U, s, Vh = rt.svds(st["Bh"], k=SVD_K, cfg=rt.RBLConfig(device="cuda", mesh=mesh))
+    wall = time.perf_counter() - t0
+    s_u = st["svd"][1]
+    errs = (rel_diff(s, s_u), float(np.abs(U.T @ U - np.eye(SVD_K)).max()),
+            float(np.abs(Vh @ Vh.T - np.eye(SVD_K)).max()))
+    if not (U.shape == (st["Bh"].shape[0], SVD_K) and Vh.shape == (SVD_K, st["Bh"].shape[1])
+            and errs[0] < 1e-8 and max(errs[1:]) < 1e-8):
+        raise AssertionError(f"(c) svds on one rank: s vs unsharded {errs[0]:.3e}, "
+                             f"orthonormality {errs[1]:.3e} / {errs[2]:.3e}")
+    print(f"(c) svds(dense 20000×2000 of phase 15, k={SVD_K}): one rank {wall:.3f} s, "
+          f"unsharded {st['svd'][3]:.3f} s; s vs unsharded {errs[0]:.3e}; U and "
+          f"Vh whole, |UᵀU − I| {errs[1]:.3e}, |VhVhᵀ − I| {errs[2]:.3e}  [{card}]")
+    del U, Vh
+    shutdown_cluster()
+    torch.cuda.empty_cache()
+
+    # --- two gloo ranks sharing the card ----------------------------------
+    with tempfile.TemporaryDirectory() as tmp:
+        ref = os.path.join(tmp, "ref.npz")
+        np.savez(ref, w31=w31, head47=head47, s=s_u)
+        port = free_port()
+        outs = [os.path.join(tmp, f"rank{r}.json") for r in range(2)]
+        procs = [subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--scipy-mesh-worker",
+             str(r), "2", str(port), ref, outs[r]],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+            start_new_session=True, cwd=ROOT) for r in range(2)]
+        t0 = time.perf_counter()
+        logs = []
+        try:
+            for p in procs:
+                log, _ = p.communicate(
+                    timeout=max(1.0, 300 - (time.perf_counter() - t0)))
+                logs.append(log)
+        except subprocess.TimeoutExpired:
+            for p in procs:
+                if p.poll() is None:
+                    os.killpg(p.pid, 9)
+                p.wait()
+            raise AssertionError("(2 ranks) the two-rank run outlived 300 s")
+        for r, (p, log) in enumerate(zip(procs, logs)):
+            for line in log.strip().splitlines():
+                print(f"  [rank {r}] {line}")
+            if p.returncode != 0:
+                for q in procs:
+                    if q.poll() is None:
+                        os.killpg(q.pid, 9)
+                raise AssertionError(f"(2 ranks) rank {r} exited {p.returncode}")
+        ranks = []
+        for o in outs:
+            with open(o) as f:
+                ranks.append(json.load(f))
+    for key in ("w31_hex", "w47_hex", "v47_sha", "s_hex", "u_sha", "vh_sha"):
+        if ranks[0][key] != ranks[1][key]:
+            raise AssertionError(f"(2 ranks) {key} differs between the ranks")
+    w31_2 = np.array([float.fromhex(v) for v in ranks[0]["w31_hex"]])
+    agree31 = rel_diff(w31_2, w31)
+    if not agree31 < 1e-8:
+        raise AssertionError(f"(2 ranks) fem31 eigenvalues vs one rank: {agree31:.3e} ≥ 1e-8")
+    print(f"(2 ranks) bitwise equal on both ranks: fem31 eigenvalues, eigsh(fem47) "
+          f"eigenvalues and vectors, svds s, U and Vh; fem31 vs one rank "
+          f"{agree31:.3e}; eigsh head {MESH_HEAD} vs one rank "
+          f"{ranks[0]['head_agreement']:.3e}; svds s vs one rank "
+          f"{ranks[0]['s_agreement']:.3e}  [{card}]")
+    return ranks
+
+
+def mesh_scipy_rows(K_sh, amg, ranks, kernels: dict, by_phase: dict, card: str):
+    """After phase 24's counts: B2 on fem47's K (f64 b=8, one rank) and both
+    packed entry points on the mesh hierarchy's replicated BSR levels
+    against the plain version, timed; B1 on each two-rank fem31 band (timed
+    by the ranks) and the ranks' launches."""
+    import torch
+
+    from rbl_tpu_torch.ops.spmm import bsr
+
+    g = torch.Generator(device="cuda").manual_seed(24)
+    X = torch.randn((K_sh.n, VIB_K), generator=g, dtype=torch.float64, device="cuda")
+    row = band_kernel_row(K_sh, X, K_sh.extended_x(X), "bsr_spmm_packed", card,
+                          "fem47 K, one rank, f64 b=8")
+    kernels["bsr_spmm_packed"]["mesh_vibration"] = dict(
+        shape="fem47 K (one rank of the mesh), f64 b=8 (X 20.8 MB); launches: "
+              "the one-rank window's (the vibration solve's K, eigsh's A)",
+        launches=by_phase["bsr_spmm_packed"]["24"], **row)
+    for i, lv in enumerate(amg.levels[1:], start=1):
+        if isinstance(lv.op, bsr.BlockSparseOperator):
+            level_shape_rows(lv.op, f"fem47 mesh AMG level {i} (replicated)",
+                             kernels, card, phase=24)
+    for name in ("bsr_spmm_packed_resident", "bsr_spmm_packed"):
+        by_phase[name]["24 (2 ranks)"] = sum(rk["launches"][name] for rk in ranks)
+    if not by_phase["bsr_spmm_packed_resident"]["24 (2 ranks)"]:
+        raise AssertionError("phase 24's two ranks never launched B1")
+    kernels["bsr_spmm_packed_resident"]["mesh_vibration"] = dict(
+        shape=ranks[0]["band_shape"],
+        launches=by_phase["bsr_spmm_packed_resident"]["24 (2 ranks)"],
+        by_rank=[rk["band_row"] for rk in ranks], **ranks[0]["band_row"])
+
+
+def scipy_mesh_worker(argv) -> int:
+    """One rank of phase 24's two-rank run: ``--scipy-mesh-worker rank nranks
+    port ref.npz out.json``.  Joins the gloo group on cuda:0, times B1 on
+    its fem31 band, solves the fem31 vibration pencil with the mesh
+    V-cycle, eigsh(fem47, k=100) and svds on phase 21's factor with
+    cfg.mesh, and writes its results to out.json."""
+    import hashlib
+
+    import torch
+
+    import rbl_tpu_torch as rt
+    from rbl_tpu_torch.ops.spmm import bsr
+    from rbl_tpu_torch.parallel.dist_spmm import ShardedBlockSparseOperator
+    from rbl_tpu_torch.parallel.distributed import (
+        initialize_cluster,
+        shutdown_cluster,
+    )
+    from rbl_tpu_torch.parallel.mesh import make_row_mesh
+    from rbl_tpu_torch.utils.fem import fem_elasticity_3d, lumped_mass
+
+    rank, nranks, port, ref, out = (int(argv[0]), int(argv[1]), argv[2],
+                                    argv[3], argv[4])
+    torch.set_float32_matmul_precision("highest")
+    card = card_line()
+    initialize_cluster(f"localhost:{port}", nranks, rank, device="cuda:0",
+                       backend="gloo", timeout_s=120)
+    mesh = make_row_mesh(nranks, device="cuda:0")
+    print(mesh.describe())
+    z = np.load(ref)
+    every = (bsr.bsr_spmm_packed_resident, bsr.bsr_spmm_packed)
+
+    def sha(a) -> str:
+        return hashlib.sha256(np.ascontiguousarray(a).tobytes()).hexdigest()
+
+    # fem31's vibration pencil
+    A31 = fem_elasticity_3d(31)
+    bm, U = bsr.pick_tile_plan(A31)
+    t0 = time.perf_counter()
+    K31 = ShardedBlockSparseOperator.from_scipy(A31, mesh, dtype=torch.float64,
+                                                bm=bm, unroll=U)
+    amg = rt.AssembledMultigrid.from_grid(A31, (31, 32, 32), dof=3, mesh=mesh,
+                                          op0=K31)
+    lo, hi = mesh.row_range(A31.shape[0])
+    print(f"fem31 band rows {lo}..{hi}, {K31.comm_blocks_per_apply()} ghost blocks, "
+          f"set up in {time.perf_counter() - t0:.1f} s ({amg.report()})")
+    g = torch.Generator(device="cuda:0").manual_seed(31)
+    X = mesh.shard_rows(torch.randn((A31.shape[0], VIB_K), generator=g,
+                                    dtype=torch.float64, device="cuda:0"))
+    Xe = K31.extended_x(X)
+    for r in range(nranks):  # the ranks share the card: one times at a time
+        if r == rank:
+            row = band_kernel_row(K31, X, Xe, "bsr_spmm_packed_resident", card,
+                                  f"fem31 band of rank {rank}/{nranks}, f64 b=8")
+        mesh.barrier()
+    reset_launches(*every)
+    res, info, wall, resid, orth, reduces = vibration_run(
+        K31, lumped_mass(31), amg.psolve, mesh, device="cuda:0",
+        max_kryl_dim=FEM31_KRYL)
+    vibration_line(f"fem31 vibration on {nranks} ranks, Krylov cap {FEM31_KRYL}",
+                   res, info, wall, resid, orth, reduces, card)
+    if not orth < 1e-8:
+        raise AssertionError(f"fem31 on {nranks} ranks: max |XᵀMX − I| {orth:.3e}")
+    w31 = np.asarray(res.eigenvalues)
+    ghosts = K31.comm_blocks_per_apply()
+    del K31, amg, X, Xe, res
+    torch.cuda.empty_cache()
+
+    # eigsh(fem47, k=100) with cfg.mesh: the whole arrays on every rank
+    A47 = fem_elasticity_3d(47)
+    t0 = time.perf_counter()
+    w47, V47 = rt.eigsh(A47, k=100, cfg=rt.RBLConfig(device="cuda:0", mesh=mesh))
+    eig_wall = time.perf_counter() - t0
+    if not (isinstance(V47, np.ndarray) and V47.shape == (A47.shape[0], 100)):
+        raise AssertionError(f"eigsh(fem47) on {nranks} ranks: vectors not whole")
+    head = rel_diff(w47[::-1][:MESH_HEAD], z["head47"])
+    if not head < 1e-5:
+        raise AssertionError(f"eigsh(fem47) head {MESH_HEAD} vs one rank: {head:.3e}")
+    print(f"eigsh(fem47, k=100) on {nranks} ranks: wall {eig_wall:.3f} s, whole "
+          f"({V47.shape[0]}, {V47.shape[1]}) on this rank's host, head "
+          f"{MESH_HEAD} vs one rank {head:.3e}  [{card}]")
+    v47 = sha(V47)
+    del V47
+
+    # svds on phase 21's factor with cfg.mesh
+    Bh = dense_factor(15, 0.9 ** torch.arange(2_000, dtype=torch.float64,
+                                              device="cuda:0"),
+                      device="cuda:0").cpu().numpy()
+    t0 = time.perf_counter()
+    Us, s, Vh = rt.svds(Bh, k=SVD_K, cfg=rt.RBLConfig(device="cuda:0", mesh=mesh))
+    svd_wall = time.perf_counter() - t0
+    s_agree = rel_diff(s, z["s"])
+    orth_s = max(float(np.abs(Us.T @ Us - np.eye(SVD_K)).max()),
+                 float(np.abs(Vh @ Vh.T - np.eye(SVD_K)).max()))
+    if not (s_agree < 1e-8 and orth_s < 1e-8):
+        raise AssertionError(f"svds on {nranks} ranks: s vs one rank {s_agree:.3e}, "
+                             f"orthonormality {orth_s:.3e}")
+    print(f"svds k={SVD_K} on {nranks} ranks: wall {svd_wall:.3f} s, s vs one rank "
+          f"{s_agree:.3e}, orthonormality {orth_s:.3e}  [{card}]")
+    launches = {f.__name__: f.launches for f in every}
+    mesh.barrier()
+    shutdown_cluster()
+    with open(out, "w") as f:
+        json.dump(dict(
+            w31_hex=[float(v).hex() for v in w31], wall_s=wall, launches=launches,
+            collectives=reduces, inner_solves=info.inner_solves,
+            inner_iterations=info.inner_iterations,
+            w47_hex=[float(v).hex() for v in w47], v47_sha=v47,
+            head_agreement=head, eig_wall_s=eig_wall,
+            s_hex=[float(v).hex() for v in s], u_sha=sha(Us), vh_sha=sha(Vh),
+            s_agreement=s_agree, svd_wall_s=svd_wall, band_row=row,
+            band_shape=(f"fem31 band ({hi - lo} rows, {ghosts} ghost blocks), "
+                        f"plan ({bm}, {U}), f64 b=8")), f)
     return 0
 
 
@@ -1146,10 +1577,9 @@ def phase_stencil_shift_invert(card: str, nx: int = 512, device: str = "cuda"):
 
 def vibration_solve(A, m, node_dims, build: str, label: str, card: str,
                     device: str = "cuda"):
-    """rbl_generalized(K, M, k=8, b=8, σ=0) with an AssembledMultigrid inner
-    preconditioner, f64, tol 1e-6; K is the hierarchy's finest operator.
-    Returns (result, info, wall, set-up s, max residual, max |XᵀMX − I|,
-    the hierarchy)."""
+    """``vibration_run`` with an AssembledMultigrid inner preconditioner
+    built here; K is the hierarchy's finest operator.  Returns (result,
+    info, wall, set-up s, max residual, max |XᵀMX − I|, the hierarchy)."""
     import torch
 
     import rbl_tpu_torch as rt
@@ -1164,21 +1594,9 @@ def vibration_solve(A, m, node_dims, build: str, label: str, card: str,
     # K is the finest level's operator: as_operator(A, f64) on the device
     opK = amg.levels[0].op if amg.levels else rt.as_operator(
         A, dtype=torch.float64, device=device)
-    opM = rt.DiagonalOperator(torch.as_tensor(m, dtype=torch.float64, device=device))
     b1, b2 = bsr.bsr_spmm_packed_resident.launches, bsr.bsr_spmm_packed.launches
-    t0 = time.perf_counter()
-    res, info = rt.rbl_generalized(
-        opK, opM, 8, 8, cfg=rt.RBLConfig(tol=1e-6, device=device), which="LM",
-        sigma=0.0, inner_psolve=amg.psolve, return_info=True)
-    if device == "cuda":
-        torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    X = res.eigenvectors
-    lam = torch.as_tensor(res.eigenvalues, dtype=torch.float64, device=X.device)
-    R = opK.apply(X) - opM.apply(X) * lam[None, :]
-    resid = float(R.norm(dim=0).max())
-    orth = float((X.T @ opM.apply(X) - torch.eye(8, dtype=X.dtype, device=X.device)
-                  ).abs().max())
+    res, info, wall, resid, orth, _ = vibration_run(opK, m, amg.psolve,
+                                                    device=device)
     print(f"{label} vibration (AMG {build}, set-up {setup_s:.2f} s on the host; "
           f"{amg.report()}; K route {type(opK).__name__}) k=8 b=8 f64 σ=0 tol 1e-6: "
           f"wall {wall:.3f} s, {info.inner_solves} inner solves, "
@@ -1330,9 +1748,7 @@ def check_path_shapes(opK, amg, kernels: dict, card: str):
     """After phase 17: both packed entry points against the plain version,
     timed, at b = 8 on every AMG level that ``as_operator`` routed to BSR,
     f32 and f64 (level 0 is fem42's K, in the f64 of the solve); each row
-    is added to ``kernels[entry]["path_shapes"]``.  The entry a level
-    dispatches to is observed: one apply at b = 8, and the launch count
-    that moved."""
+    is added to ``kernels[entry]["path_shapes"]``."""
     import torch
 
     from rbl_tpu_torch.ops.spmm import bsr
@@ -1346,43 +1762,56 @@ def check_path_shapes(opK, amg, kernels: dict, card: str):
         label = "fem42 K = AMG level 0" if i == 0 else f"AMG level {i}"
         for dtype in ((torch.float64,) if i == 0 else (torch.float32, torch.float64)):
             op = lv.op if lv.op.dtype == dtype else cast_operator(lv.op, dtype)
-            entries = ("bsr_spmm_packed_resident", "bsr_spmm_packed")
-            before = [getattr(bsr, e).launches for e in entries]
-            op.apply(torch.zeros((op._n, 8), dtype=dtype, device="cuda"))
-            moved = [e for e, n0 in zip(entries, before) if getattr(bsr, e).launches > n0]
-            if len(moved) != 1:
-                raise AssertionError(f"{label} {dtype} b=8 launched {moved or 'no packed entry'}")
-            used = moved[0]
-            # the library's time for the same product: the level's nonzeros
-            # as torch.sparse CSR
-            csr = csr_from_packed(op)
-            Xl = padded_x(op, 8, seed=17)[: op._n]
-            lib_ms = time_ms(lambda: torch.sparse.mm(csr, Xl))
-            Yp = bsr.bsr_spmm_packed_reference(
-                op.tile_cols, op.hcount, op.rptr, op.vals, padded_x(op, 8, seed=17),
-                bm=op.bm, bk=op.bk, unroll=op.unroll)[: op._n]
-            lib_rel = float((torch.sparse.mm(csr, Xl) - Yp).abs().max()
-                            / Yp.abs().max())
-            if not lib_rel < TOL[str(dtype)[6:]]:
-                raise AssertionError(f"{label} {dtype}: CSR of the packed tiles off "
-                                     f"the plain version by {lib_rel:.3e}")
-            del csr
-            for entry in entries:
-                abs_err, rel, ms, plain_ms, moved, ops = compare_entry(
-                    entry, op, 8, seed=17, timing=True)
-                lim = bound(moved, ops)
-                kernels[entry].setdefault("path_shapes", []).append(dict(
-                    phase=17, shape=f"{label} n={op._n} plan ({op.bm}, {op.unroll}) "
-                    f"{str(dtype)[6:]} b=8", dispatched=entry == used,
-                    max_abs_err=abs_err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                    **lim))
-                tag = " (the path's entry)" if entry == used else ""
-                print(f"{entry} {label} (n={op._n}, plan ({op.bm}, {op.unroll}), "
-                      f"{op.nnz_blocks} tiles) b=8 {dtype}{tag}: "
-                      f"rel err {rel:.2e}, kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-                      f"torch.sparse CSR {lib_ms:.4f} ms, "
-                      f"bound {lim['bound_ms']:.4f} ms ({lim['bound_ms'] / ms:.0%})  "
-                      f"[{card}]")
+            level_shape_rows(op, label, kernels, card, phase=17)
+
+
+def level_shape_rows(op, label: str, kernels: dict, card: str, phase: int):
+    """Both packed entry points against the plain version on one BSR level
+    operator at b = 8, timed beside torch.sparse CSR of its nonzeros and
+    the bound; one row each in ``kernels[entry]["path_shapes"]``.  The
+    entry the level dispatches to is observed: one apply at b = 8, and the
+    launch count that moved."""
+    import torch
+
+    from rbl_tpu_torch.ops.spmm import bsr
+
+    dtype = op.dtype
+    entries = ("bsr_spmm_packed_resident", "bsr_spmm_packed")
+    before = [getattr(bsr, e).launches for e in entries]
+    op.apply(torch.zeros((op._n, 8), dtype=dtype, device="cuda"))
+    moved = [e for e, n0 in zip(entries, before) if getattr(bsr, e).launches > n0]
+    if len(moved) != 1:
+        raise AssertionError(f"{label} {dtype} b=8 launched {moved or 'no packed entry'}")
+    used = moved[0]
+    # the library's time for the same product: the level's nonzeros as
+    # torch.sparse CSR
+    csr = csr_from_packed(op)
+    Xl = padded_x(op, 8, seed=17)[: op._n]
+    lib_ms = time_ms(lambda: torch.sparse.mm(csr, Xl))
+    Yp = bsr.bsr_spmm_packed_reference(
+        op.tile_cols, op.hcount, op.rptr, op.vals, padded_x(op, 8, seed=17),
+        bm=op.bm, bk=op.bk, unroll=op.unroll)[: op._n]
+    lib_rel = float((torch.sparse.mm(csr, Xl) - Yp).abs().max() / Yp.abs().max())
+    if not lib_rel < TOL[str(dtype)[6:]]:
+        raise AssertionError(f"{label} {dtype}: CSR of the packed tiles off "
+                             f"the plain version by {lib_rel:.3e}")
+    del csr
+    for entry in entries:
+        abs_err, rel, ms, plain_ms, moved, ops = compare_entry(
+            entry, op, 8, seed=17, timing=True)
+        lim = bound(moved, ops)
+        kernels[entry].setdefault("path_shapes", []).append(dict(
+            phase=phase, shape=f"{label} n={op._n} plan ({op.bm}, {op.unroll}) "
+            f"{str(dtype)[6:]} b=8", dispatched=entry == used,
+            max_abs_err=abs_err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+            **lim))
+        tag = " (the path's entry)" if entry == used else ""
+        print(f"{entry} {label} (n={op._n}, plan ({op.bm}, {op.unroll}), "
+              f"{op.nnz_blocks} tiles) b=8 {dtype}{tag}: "
+              f"rel err {rel:.2e}, kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+              f"torch.sparse CSR {lib_ms:.4f} ms, "
+              f"bound {lim['bound_ms']:.4f} ms ({lim['bound_ms'] / ms:.0%})  "
+              f"[{card}]")
 
 
 def phase_eigsh(A, head, card: str, device: str = "cuda"):
@@ -1804,6 +2233,8 @@ def main() -> int:
 
     if len(sys.argv) > 1 and sys.argv[1] == "--mesh-worker":
         return mesh_worker(sys.argv[2:])
+    if len(sys.argv) > 1 and sys.argv[1] == "--scipy-mesh-worker":
+        return scipy_mesh_worker(sys.argv[2:])
     if not torch.cuda.is_available():
         print("chip_smoke.py: torch.cuda.is_available() is False — this "
               "script runs on a CUDA card only", file=sys.stderr)
@@ -2242,6 +2673,17 @@ def main() -> int:
     t23 = time.perf_counter()
     phase_mesh(card, kernels, by_phase, every)
     print(f"phase 23: {time.perf_counter() - t23:.1f} s")
+    torch.cuda.empty_cache()
+
+    # --- 24. the vibration pencil with the mesh V-cycle, eigsh/svds on the
+    # mesh: one rank over NCCL, two sharing the card; then B1/B2 at its shapes
+    # (the unsharded references and the set-up run before the counted window)
+    t24 = time.perf_counter()
+    st24 = mesh_scipy_refs(card)
+    print(f"phase 24 references and set-up: {time.perf_counter() - t24:.1f} s")
+    ranks24 = long_phase(24, (B1, B2), phase_mesh_scipy, st24, card)
+    mesh_scipy_rows(st24["K_sh"], st24["amg_m"], ranks24, kernels, by_phase, card)
+    del st24
     print(f"chip_smoke total: {time.perf_counter() - t_start:.1f} s")
 
     record = {"kernels": [

@@ -53,6 +53,19 @@ Differences from ARPACK, stated rather than hidden:
   shift-invert and pencil paths on an accelerator, where its "high" tier
   loses digits in their inner recurrences.  The port has no such branch:
   its "high" is already full FP32 (``config.matmul_precision``).
+
+Under ``cfg.mesh`` (a ``parallel.mesh.RowMesh``) every rank calls
+``eigsh``/``svds`` with the same arguments; a matrix, or an operator that
+is not sharded, is applied replicated (``parallel.dist_spmm.on_mesh``), as
+the JAX package applies a scipy matrix under its mesh.  Every rank gets
+the WHOLE numpy arrays back, scipy's contract and the JAX package's
+single-controller result: the rank's rows of each vector block are
+all-gathered on the mesh's device, then copied to the host.  That costs
+one all-gather and a host copy of the whole block on every rank:
+k = 100 vectors of fem_elasticity_3d(47) (n = 324,864) in f32 are 130 MB
+on each rank's host (260 MB in f64).  A partial result that
+``ArpackNoConvergence`` carries is gathered on every rank before the
+raise, after the ranks agree that it is raised.
 """
 
 from __future__ import annotations
@@ -70,6 +83,22 @@ def _host(x) -> np.ndarray:
     if isinstance(x, torch.Tensor):
         return x.detach().cpu().numpy()
     return np.asarray(x)
+
+
+def _whole(V, mesh, n: Optional[int]) -> np.ndarray:
+    """A vector block as numpy on the host; under ``mesh`` V holds the
+    rank's rows of n, and every rank gets the whole (one all-gather).
+    Every rank must call this: it is a collective."""
+    if mesh is not None:
+        V = mesh.gather_rows(V, n)
+    return _host(V)
+
+
+def _on_all_ranks(flag: bool, mesh) -> bool:
+    """``flag`` as every rank of ``mesh`` sees it: True only if it is
+    True on every rank, so that the ranks take a branch that holds a
+    collective together."""
+    return bool(flag) if mesh is None else mesh.agree(bool(flag))
 
 
 def _scipy_eig_order(
@@ -92,23 +121,23 @@ def _operand_n(A) -> Optional[int]:
     return n if n is not None else getattr(A, "n", None)
 
 
-def _no_convergence(msg: str, w, V, n):
+def _no_convergence(msg: str, w, V, n, mesh=None):
     """scipy's ArpackNoConvergence carrying the partial results on the
-    host (an empty (n, 0) block when there are no vectors)."""
+    host (an empty (n, 0) block when there are no vectors); under
+    ``mesh`` the whole vectors, gathered on every rank."""
     from scipy.sparse.linalg import ArpackNoConvergence
 
-    V = _host(V) if V is not None else np.zeros((n or 0, 0))
+    V = _whole(V, mesh, n) if V is not None else np.zeros((n or 0, 0))
     return ArpackNoConvergence(msg, np.asarray(w, dtype=np.float64), V)
 
 
 def _cfg_with_tol_ncv(cfg, tol, ncv, k):
-    """The shared eigsh cfg plumbing: tol → cfg.tol, ncv → Krylov cap."""
+    """The shared eigsh cfg plumbing: tol → cfg.tol, ncv → Krylov cap;
+    under a mesh the solve runs on the mesh's device unless cfg.device
+    says otherwise."""
     cfg = cfg or RBLConfig()
-    if cfg.mesh is not None:
-        raise NotImplementedError(
-            "the scipy front door (eigsh/svds) under a row mesh: not ported "
-            "yet (ROADMAP.md section A) — call rbl/rbl_svd with cfg.mesh"
-        )
+    if cfg.mesh is not None and cfg.device is None:
+        cfg = cfg.replace(device=str(cfg.mesh.device))
     if tol and tol > 0:
         cfg = cfg.replace(tol=float(tol))
     if ncv is not None:
@@ -147,9 +176,11 @@ def _be_split(A, k, cfg, return_eigenvectors, solve_half, strict=False):
     def vectors():
         if any(r.eigenvectors is None for r in parts):
             return None
-        return np.concatenate([_host(r.eigenvectors) for r in parts], axis=1)
+        return np.concatenate([_whole(r.eigenvectors, cfg.mesh, n)
+                               for r in parts], axis=1)
 
-    if strict and not all(r.converged for r in parts):
+    if strict and not _on_all_ranks(all(r.converged for r in parts),
+                                    cfg.mesh):
         # the maxiter/restarted path mirrors the non-BE contract: a
         # half-solve that ran out of restarts must raise, not return a
         # silently short or inaccurate spectrum (the plain paths stay
@@ -200,11 +231,14 @@ def _auto_inner_psolve(A, sigma: float, dtype, device):
         return None  # unusual structure: keep the Jacobi tier
 
 
-def _op_norm_scale(si, op, sigma: float) -> float:
+def _op_norm_scale(si, op, sigma: float, mesh=None) -> float:
     """‖OP‖ = ‖(A − σI)⁻¹‖ estimate for the θ-space tolerance rescale:
     exact (1/min-gap) for FDM-supported operators, else a short power
     estimate on OP itself (a handful of inner solves) from a generator
-    seeded 17 on the operator's device."""
+    seeded 17 on the operator's device.  Under ``mesh`` OP takes the
+    rank's rows: every rank draws the whole start vector and keeps its
+    rows, so the ranks, and one rank against the unsharded solve, get
+    the same scale."""
     from .ops.fdm import fdm_min_shift_gap
 
     gap = fdm_min_shift_gap(op, sigma)
@@ -216,21 +250,25 @@ def _op_norm_scale(si, op, sigma: float) -> float:
     gen.manual_seed(17)
     # margin 1.0: an OVER-estimate of ‖OP‖ would loosen the tolerance;
     # the power under-estimate errs strict, like ARPACK's per-pair |θᵢ|
-    return max(spectral_norm_bound(si, gen, iters=10, margin=1.0), 1e-30)
+    return max(spectral_norm_bound(si, gen, iters=10, margin=1.0, mesh=mesh),
+               1e-30)
 
 
-def _rayleigh_from_op(op, res, sigma: float):
+def _rayleigh_from_op(op, res, sigma: float, mesh=None):
     """(λ, X) for a shift-invert solve, on the host: λ from the Rayleigh
     quotient with the ORIGINAL A — more accurate than σ + 1/θ, which
     inherits the inner MINRES error in θ.  A is applied on the device; the
     quotients are formed in f64 on the host.  Zero columns (defensive)
-    fall back to σ + 1/θ."""
+    fall back to σ + 1/θ.  Under ``mesh`` ``op`` and the eigenvectors
+    hold the rank's rows: X and A·X are gathered whole on every rank
+    first, so the quotients are the unsharded solve's arithmetic."""
     theta = np.asarray(res.eigenvalues, dtype=np.float64)
     Xd = res.eigenvectors
-    X = _host(Xd)
+    n = op.n
+    X = _whole(Xd, mesh, n)
     if X.shape[1] == 0:
         return theta[:0], X
-    AX = _host(op.apply(Xd.to(op.dtype))).astype(np.float64)
+    AX = _whole(op.apply(Xd.to(op.dtype)), mesh, n).astype(np.float64)
     X64 = X.astype(np.float64)
     num = np.einsum("ij,ij->j", X64, AX)
     den = np.einsum("ij,ij->j", X64, X64)
@@ -336,6 +374,7 @@ def eigsh(
         )
     cfg = _cfg_with_tol_ncv(cfg, tol, ncv, k)
     bsz = b or _default_block(k)
+    mesh, n = cfg.mesh, _operand_n(A)
 
     if maxiter is not None and sigma is None:
         # ARPACK's maxiter bounds the number of implicit restarts; the
@@ -362,20 +401,21 @@ def eigsh(
             which=which, v0=v0,
         )
         w = np.asarray(res.eigenvalues, dtype=np.float64)
-        if not res.converged:
+        if not _on_all_ranks(res.converged, mesh):
             raise _no_convergence(
                 f"No convergence within {maxiter} restarts "
                 f"({len(w)}/{k} eigenpairs locked)", w, res.eigenvectors,
-                _operand_n(A),
+                n, mesh,
             )
         order = _scipy_eig_order(w, user_which, return_eigenvectors)
         if not return_eigenvectors:
             return w[order]
-        return w[order], _host(res.eigenvectors)[:, order]
+        return w[order], _whole(res.eigenvectors, mesh, n)[:, order]
 
     if sigma is not None:
         from .ops.minres import ShiftInvertOperator, default_inner_tol
         from .ops.spmm.operator import as_operator
+        from .parallel.dist_spmm import on_mesh
 
         op = as_operator(A, device=cfg.device)
         # Inner-solve error perturbs OP in a way the outer residual bounds
@@ -385,15 +425,20 @@ def eigsh(
         if inner_psolve is None:
             inner_psolve = _auto_inner_psolve(A, float(sigma), op.dtype,
                                               op.device)
+        # under a mesh MINRES runs on the rank's rows; an inner psolve
+        # that takes whole blocks is applied replicated (ops/minres.py
+        # ``mesh_psolve``)
+        opm = on_mesh(op, mesh)
         si = ShiftInvertOperator.shift(
-            op, float(sigma), inner_tol=inner_tol, psolve=inner_psolve
+            opm, float(sigma), inner_tol=inner_tol, psolve=inner_psolve
         )
         # ARPACK's convergence under shift-invert is RELATIVE to |θ| in
         # OP space (scipy tol semantics); our solver's bound is absolute
         # in θ space, and ‖OP‖ = 1/dist(σ, spec A) can be huge — without
         # rescaling, eigsh(sigma=...) demands |θ|·tol-times more than
         # scipy and over-solves by orders of magnitude.
-        cfg = cfg.replace(tol=cfg.tol * _op_norm_scale(si, op, float(sigma)))
+        cfg = cfg.replace(
+            tol=cfg.tol * _op_norm_scale(si, op, float(sigma), mesh))
         if maxiter is not None:
             # ARPACK's maxiter bounds implicit restarts in shift-invert
             # mode too: run the explicitly restarted solver ON the
@@ -408,8 +453,8 @@ def eigsh(
                 si, k, cfg=cfg, b=bsz, max_restarts=int(maxiter),
                 which=which, v0=v0,
             )
-            if not res.converged:
-                w_p, X_p = _rayleigh_from_op(op, res, float(sigma))
+            if not _on_all_ranks(res.converged, mesh):
+                w_p, X_p = _rayleigh_from_op(opm, res, float(sigma), mesh)
                 raise _no_convergence(
                     f"No convergence within {maxiter} restarts "
                     f"({len(w_p)}/{k} eigenpairs locked)", w_p, X_p, op.n,
@@ -419,7 +464,7 @@ def eigsh(
                 si, k, b=bsz, cfg=cfg, which=which,
                 compute_eigenvectors=True, v0=v0,
             )
-        w, X = _rayleigh_from_op(op, res, float(sigma))
+        w, X = _rayleigh_from_op(opm, res, float(sigma), mesh)
         order = _scipy_eig_order(w, user_which, return_eigenvectors)
         if not return_eigenvectors:
             return w[order]
@@ -446,7 +491,7 @@ def eigsh(
     order = _scipy_eig_order(w, user_which, return_eigenvectors)
     if not return_eigenvectors:
         return w[order]
-    return w[order], _host(res.eigenvectors)[:, order]
+    return w[order], _whole(res.eigenvectors, mesh, n)[:, order]
 
 
 def _eigsh_generalized(
@@ -469,13 +514,14 @@ def _eigsh_generalized(
     if maxiter is not None and ncv is not None:
         cfg = cfg.replace(restart_kryl_dim=int(ncv))
     mr = None if maxiter is None else int(maxiter)
+    mesh, n = cfg.mesh, _operand_n(A)
 
     def _raise_if_exhausted(res):
-        if mr is not None and not res.converged:
+        if mr is not None and not _on_all_ranks(res.converged, mesh):
             raise _no_convergence(
                 f"No convergence within {maxiter} restarts "
                 f"({len(res.eigenvalues)}/{k} eigenpairs locked)",
-                res.eigenvalues, res.eigenvectors, _operand_n(A),
+                res.eigenvalues, res.eigenvectors, n, mesh,
             )
         return res
 
@@ -484,7 +530,7 @@ def _eigsh_generalized(
         order = _scipy_eig_order(w, sort_which, return_eigenvectors)
         if not return_eigenvectors:
             return w[order]
-        return w[order], _host(res.eigenvectors)[:, order]
+        return w[order], _whole(res.eigenvectors, mesh, n)[:, order]
 
     if sigma is not None:
         if inner_psolve is None and mode == "normal":
@@ -547,7 +593,9 @@ def svds(
     rank, same as scipy's LOBPCG/ARPACK paths) are supported.
     ``maxiter`` and ``solver`` are accepted for scipy's signature and not
     read; ``random_state`` seeds the solve's generator.  ``cfg.device``
-    places the solve.
+    places the solve.  Under ``cfg.mesh`` ``rbl_svd`` returns the rank's
+    rows of both U (m rows) and V (n rows); each is gathered, and every
+    rank gets the whole u and vh.
     """
     from .solver.svd import rbl_svd
 
@@ -574,6 +622,7 @@ def svds(
     s = np.asarray(res.s)[order]
     if not return_singular_vectors:
         return s
-    U = _host(res.U)[:, order]
-    Vh = _host(res.V)[:, order].T
+    m, n = A.shape
+    U = _whole(res.U, cfg.mesh, m)[:, order]
+    Vh = _whole(res.V, cfg.mesh, n)[:, order].T
     return U, s, Vh

@@ -40,6 +40,17 @@ arithmetic with f32-rounded smoother and aggregate constants and returns
 f64 (each level operator applies by its own rule: the packed-BSR kernel
 computes at its tiles' dtype).
 
+Under a row mesh (``mesh=``, ``parallel/mesh.py``) level 0 lives on the
+rank's band: its operator is the solve's sharded K (``op0``; the packed
+kernel on the band with its ghost exchange), its smoother holds the rank's
+node blocks only, and its transfer pair is the rank's rows of the assembled
+prolongator P as a ``RectCooOperator`` (``_MeshTransfer``: prolong needs no
+communication, restrict ends in one all-reduce of the (n₁, b) coarse
+residual).  Levels ≥ 1 and the coarsest dense inverse are replicated on
+every rank.  So a cycle is the JAX package's on the global block (which
+GSPMD shards) with one all-reduce a cycle, and takes and returns the
+rank's rows.
+
 Used by the shift-invert operators via their ``psolve`` hook
 (ops/minres.py, ops/generalized.py).
 """
@@ -311,6 +322,22 @@ class _CooTransfer:
         return self.R.apply(F)
 
 
+class _MeshTransfer(_CooTransfer):
+    """Level 0's transfer pair under a row mesh: the rank's rows of the
+    assembled prolongator P (n, n₁).  Prolong maps the replicated coarse
+    block to the rank's rows with no communication; restrict sums each
+    rank's Pᵀ·F over the mesh, one all-reduce of the (n₁, b) coarse
+    block."""
+
+    def __init__(self, P: sp.csr_matrix, mesh, dtype, device):
+        lo, hi = mesh.row_range(P.shape[0])
+        super().__init__(sp.csr_matrix(P)[lo:hi], dtype, device)
+        self.mesh = mesh
+
+    def restrict(self, F):
+        return self.mesh.all_reduce_sum(self.R.apply(F))
+
+
 class _AggTransfer:
     """Smoothed-aggregation transfer pair in the PERMUTED-AGGREGATE layout:
     P = (I − ω D⁻¹A) P_t applied as the tentative aggregate contraction
@@ -389,6 +416,15 @@ class _GridTransfer:
         return self._axes(F, self.fine_dims, transpose=True)
 
 
+def _grid_prolongator(P1s, dof: int) -> sp.csr_matrix:
+    """The assembled node-grid prolongator: the Kronecker product of the
+    three per-axis factors, each node's ``dof`` unknowns carried
+    alike."""
+    Pn = sp.kron(sp.kron(sp.csr_matrix(P1s[0]), sp.csr_matrix(P1s[1])),
+                 sp.csr_matrix(P1s[2]))
+    return sp.kron(Pn, sp.identity(dof, format="csr")).tocsr()
+
+
 def _grid_prolong_1d(m: int) -> np.ndarray:
     """Node-grid coarsening keeping every other node (works for any m):
     coarse t ↔ fine 2t; odd fine nodes average their coarse neighbors (or
@@ -406,6 +442,54 @@ def _grid_prolong_1d(m: int) -> np.ndarray:
     return P
 
 
+def _hierarchy_device(device, mesh):
+    """Where the levels live: the mesh's device under a mesh, else
+    ``device`` (None: the CUDA card)."""
+    return resolve_device(mesh.device if mesh is not None else device)
+
+
+def _mesh_node_rows(mesh, n: int, dof: int) -> tuple[int, int]:
+    """The rank's rows [lo, hi) of an n-row level 0 on ``mesh``; raises
+    unless every rank's n/size rows hold whole nodes of ``dof`` unknowns
+    (a node split by a band edge would couple two ranks' smoothers)."""
+    if n % mesh.size or (n // mesh.size) % dof:
+        raise ValueError(
+            f"n={n} over {mesh.size} ranks: a rank's band of n/size rows "
+            f"must hold whole nodes of dof={dof} unknowns (n divisible by "
+            f"{mesh.size * dof})"
+        )
+    return mesh.row_range(n)
+
+
+def _mesh_level0(A: sp.csr_matrix, dof: int, omega: float, dtype, mesh,
+                 op0) -> _AMGLevel:
+    """Level 0 of a hierarchy on ``mesh``: the sharded operator ``op0``
+    (built from A when None) and the damped inverses of the rank's own
+    node blocks."""
+    from ..parallel.dist_spmm import (
+        ShardedBlockSparseOperator,
+        ShardedCooSpMM,
+        op_mesh,
+    )
+
+    n = A.shape[0]
+    lo, hi = _mesh_node_rows(mesh, n, dof)
+    if op0 is None:
+        if n % (mesh.size * 128) == 0:
+            op0 = ShardedBlockSparseOperator.from_scipy(A, mesh, dtype=dtype)
+        else:
+            op0 = ShardedCooSpMM.from_scipy(A, mesh, dtype=dtype)
+    else:
+        own = op_mesh(op0)
+        if op0.n != n or own is None or own.size != mesh.size:
+            raise ValueError(
+                f"op0 must be the level-0 matrix (n={n}) sharded over the "
+                f"mesh's {mesh.size} ranks"
+            )
+    Winv = _block_diag_inv(A, dof, omega)[lo // dof : hi // dof]
+    return _AMGLevel(A, dof, omega, dtype, mesh.device, op=op0, Winv=Winv)
+
+
 class AssembledMultigrid:
     """Multigrid V-cycle for an assembled sparse SPD matrix.  See module
     docstring; construct via :meth:`smoothed_aggregation` (algebraic, any
@@ -413,15 +497,22 @@ class AssembledMultigrid:
     separable transfers), apply via :meth:`psolve` (SPD — usable as the
     ``psolve`` hook of the shift-invert operators and ``block_minres``).
     The set-up runs on the host; the levels live on ``device`` (default:
-    the CUDA card)."""
+    the CUDA card).
 
-    def __init__(self, levels, transfers, coarse_inv, nu, dtype, device=None):
+    ``mesh`` (a ``parallel.mesh.RowMesh``, or None): the hierarchy of a
+    row-sharded solve, whose :meth:`psolve` takes and returns the rank's
+    rows (see the module docstring).  The shift-invert operators read it
+    to tell this cycle from one that takes whole blocks."""
+
+    def __init__(self, levels, transfers, coarse_inv, nu, dtype, device=None,
+                 mesh=None):
         self.levels = levels            # list[_AMGLevel]
         self.transfers = transfers      # list[_AggTransfer|_GridTransfer|...]
         self.coarse_inv = np.asarray(coarse_inv)  # host (nc, nc)
         self.nu = int(nu)
         self.dtype = dtype
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.device = _hierarchy_device(device, mesh)
         self._ci = {}
 
     @classmethod
@@ -437,6 +528,8 @@ class AssembledMultigrid:
         max_levels: int = 12,
         dtype=torch.float64,
         device=None,
+        mesh=None,
+        op0=None,
     ) -> "AssembledMultigrid":
         """Build the hierarchy from a scipy sparse SPD matrix.
 
@@ -446,8 +539,15 @@ class AssembledMultigrid:
             ``rigid_body_modes(coords)`` for elasticity with rotations).
         theta: strength threshold on the normalized block graph.
         omega: block-Jacobi smoother damping.
+        mesh: a ``RowMesh``: build the hierarchy of a row-sharded solve
+            (level 0 on the rank's band, on the mesh's device; the levels
+            below replicated).  Every rank calls this with the whole A.
+        op0: under ``mesh``, A sharded over it (the solve's own operator,
+            so that A is not packed twice); default: a
+            ``ShardedBlockSparseOperator`` of A when n divides into
+            128-row blocks on every rank, else a ``ShardedCooSpMM``.
         """
-        dev = resolve_device(device)
+        dev = _hierarchy_device(device, mesh)
         A = sp.csr_matrix(A).astype(np.float64)
         if dof is None:
             dof = detect_dof_blocks(A)
@@ -463,7 +563,10 @@ class AssembledMultigrid:
         for _ in range(max_levels):
             if Al.shape[0] <= coarsest_n:
                 break
-            levels.append(_AMGLevel(Al, dofl, omega, dtype, dev))
+            sharded = mesh is not None and not levels
+            levels.append(
+                _mesh_level0(Al, dofl, omega, dtype, mesh, op0) if sharded
+                else _AMGLevel(Al, dofl, omega, dtype, dev))
             S = _node_strength_graph(Al, dofl)
             agg = _aggregate(S, theta)
             Pt, Bc, agg_meta = _tentative_prolongator(agg, Bl, dofl)
@@ -474,9 +577,10 @@ class AssembledMultigrid:
             d[d == 0] = 1.0
             Dinv = sp.diags(1.0 / d)
             P = (Pt - w_p * (Dinv @ (Al @ Pt))).tocsr()
-            transfers.append(_AggTransfer(
-                agg_meta, levels[-1].op, 1.0 / d, w_p, Pt.shape[1], dtype, dev
-            ))
+            transfers.append(
+                _MeshTransfer(P, mesh, dtype, dev) if sharded
+                else _AggTransfer(agg_meta, levels[-1].op, 1.0 / d, w_p,
+                                  Pt.shape[1], dtype, dev))
             Al = (P.T @ Al @ P).tocsr()
             Al.sum_duplicates()
             Bl, dofl = Bc, B.shape[1]  # coarse "nodes" carry nb dofs
@@ -484,7 +588,7 @@ class AssembledMultigrid:
         # with zero columns) can leave null coarse directions; the cycle
         # stays PD through the smoother term
         coarse_inv = np.linalg.pinv(Al.toarray())
-        return cls(levels, transfers, coarse_inv, nu, dtype, dev)
+        return cls(levels, transfers, coarse_inv, nu, dtype, dev, mesh)
 
     @classmethod
     def from_grid(
@@ -498,6 +602,8 @@ class AssembledMultigrid:
         max_levels: int = 12,
         dtype=torch.float64,
         device=None,
+        mesh=None,
+        op0=None,
     ) -> "AssembledMultigrid":
         """Geometric hierarchy for a matrix assembled on a regular node grid
         (the FEM benchmark class — ``utils.fem.fem_elasticity_3d`` after
@@ -511,8 +617,10 @@ class AssembledMultigrid:
         (scipy, at construction), applied through the sparse-operator
         router.  Trilinear P reproduces linear fields, so all 6 elasticity
         rigid-body modes transfer exactly — no near-nullspace input
-        needed."""
-        dev = resolve_device(device)
+        needed.  ``mesh`` and ``op0`` as in :meth:`smoothed_aggregation`:
+        under a mesh level 0's transfer is the Kronecker P's rows of the
+        rank."""
+        dev = _hierarchy_device(device, mesh)
         A = sp.csr_matrix(A).astype(np.float64)
         dims = tuple(int(x) for x in node_dims)
         if int(np.prod(dims)) * dof != A.shape[0]:
@@ -525,20 +633,20 @@ class AssembledMultigrid:
         for _ in range(max_levels):
             if Al.shape[0] <= coarsest_n or min(dl) < 3:
                 break
-            levels.append(_AMGLevel(Al, dof, omega, dtype, dev))
+            sharded = mesh is not None and not levels
+            levels.append(
+                _mesh_level0(Al, dof, omega, dtype, mesh, op0) if sharded
+                else _AMGLevel(Al, dof, omega, dtype, dev))
             P1s = [_grid_prolong_1d(m) for m in dl]
             cdl = tuple(P.shape[1] for P in P1s)
-            transfers.append(_GridTransfer(dl, cdl, P1s, dof))
-            Pn = sp.kron(
-                sp.kron(sp.csr_matrix(P1s[0]), sp.csr_matrix(P1s[1])),
-                sp.csr_matrix(P1s[2]),
-            )
-            P = sp.kron(Pn, sp.identity(dof, format="csr")).tocsr()
+            P = _grid_prolongator(P1s, dof)
+            transfers.append(_MeshTransfer(P, mesh, dtype, dev) if sharded
+                             else _GridTransfer(dl, cdl, P1s, dof))
             Al = (P.T @ Al @ P).tocsr()
             Al.sum_duplicates()
             dl = cdl
         coarse_inv = np.linalg.pinv(Al.toarray())
-        return cls(levels, transfers, coarse_inv, nu, dtype, dev)
+        return cls(levels, transfers, coarse_inv, nu, dtype, dev, mesh)
 
     # -- device apply -------------------------------------------------
 
@@ -561,7 +669,21 @@ class AssembledMultigrid:
         return E
 
     def psolve(self, X):
-        """One symmetric V-cycle ≈ A⁻¹ on an (n, b) block (SPD)."""
+        """One symmetric V-cycle ≈ A⁻¹ on an (n, b) block (SPD); under
+        ``mesh`` on the rank's rows of it."""
+        if self.mesh is None:
+            return self._vcycle(0, X)
+        n = self.levels[0].n if self.levels else self.coarse_inv.shape[0]
+        if X.shape[0] != self.mesh.local_rows(n):
+            raise ValueError(
+                f"a hierarchy built on a row mesh cycles the rank's "
+                f"{self.mesh.local_rows(n)} rows of n={n}, got a block of "
+                f"{X.shape[0]} rows (solve on the same mesh: cfg.mesh or a "
+                "sharded operator)")
+        if not self.levels:
+            # no level 0 on the band: the dense inverse takes the whole
+            lo, hi = self.mesh.row_range(n)
+            return self._vcycle(0, self.mesh.gather_rows(X, n))[lo:hi]
         return self._vcycle(0, X)
 
     def report(self) -> str:

@@ -286,11 +286,12 @@ class GeneralizedShiftInvertOperator(LinearOperator):
 
     def __post_init__(self):
         from ..parallel.dist_spmm import op_mesh
-        from .minres import _refuse_psolve_on_mesh
+        from .minres import mesh_psolve
 
-        # sharded A and M: MINRES on the rank's rows, reduced over the mesh
+        # sharded A and M: MINRES on the rank's rows, reduced over the
+        # mesh, an explicit psolve applied to them by its kind
         self._mesh = op_mesh(self.A)
-        _refuse_psolve_on_mesh(self._mesh, self.psolve)
+        self._psolve = mesh_psolve(self.psolve, self._mesh, self.A.n)
 
     @property
     def shape(self):
@@ -313,7 +314,7 @@ class GeneralizedShiftInvertOperator(LinearOperator):
         def op(V):
             return self.A.apply(V) - self.sigma * self.M.apply(V)
 
-        psolve = self.psolve
+        psolve = self._psolve
         if psolve is None and self.precond == "jacobi":
             dA, dM = self.A.diagonal(), self.M.diagonal()
             if dA is not None and dM is not None:

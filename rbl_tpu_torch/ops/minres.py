@@ -240,16 +240,22 @@ class ShiftInvertOperator(LinearOperator):
         from ..parallel.dist_spmm import op_mesh
 
         # a sharded base: MINRES on the rank's rows, its dot products
-        # reduced over the mesh
+        # reduced over the mesh, an explicit psolve applied to them by
+        # its kind (``mesh_psolve``)
         self._mesh = op_mesh(self.base)
-        _refuse_psolve_on_mesh(self._mesh, self.psolve)
+        self._psolve = mesh_psolve(self.psolve, self._mesh, self.base.n)
+        # the operator whose structure offers FDM or a V-cycle: a
+        # replicated base's whole operator, whose solvers then take the
+        # gathered block (``mesh_psolve``), as GSPMD runs them
+        self._structure = _replicated_whole(self.base)
         # Resolve "auto" once, at construction: the MG V-cycle
         # approximates A⁻¹, which only preconditions (A − σI) well while
         # |σ| is small against ‖A‖ — for interior shifts the 1 − σ/λ
         # spectrum is badly spread at the small-λ end and MG can be worse
         # than Jacobi.
         if self.precond == "auto":
-            self.precond = self._resolve_auto(self.base, float(self.sigma))
+            self.precond = self._resolve_auto(self._structure,
+                                              float(self.sigma))
 
     @classmethod
     def shift(cls, base: LinearOperator, sigma: float, **kw):
@@ -263,7 +269,7 @@ class ShiftInvertOperator(LinearOperator):
             # a singular-matrix error from the LU)
             from .fdm import fdm_min_shift_gap
 
-            gap = fdm_min_shift_gap(base, float(sigma))
+            gap = fdm_min_shift_gap(op._structure, float(sigma))
             if gap is not None and gap < 1e-12 * max(1.0, abs(float(sigma))):
                 raise ValueError(
                     f"sigma={float(sigma)!r} coincides with an eigenvalue "
@@ -331,7 +337,7 @@ class ShiftInvertOperator(LinearOperator):
             # ops/amg.py) wins over the built-in resolution — except the
             # exact FDM solve, which no preconditioner can beat
             return self._minres_solve(
-                X.to(self.dtype), self.psolve
+                X.to(self.dtype), self._psolve
             ).to(X.dtype)
         if precond == "fdm":
             return self._fdm_apply(X)
@@ -342,7 +348,8 @@ class ShiftInvertOperator(LinearOperator):
             # preconditioner for sigma at/near 0 ("SM", lowest modes).
             from .multigrid import mg_psolve_for
 
-            psolve = mg_psolve_for(self.base)
+            psolve = mesh_psolve(mg_psolve_for(self._structure),
+                                 self._mesh, self.base.n)
             if psolve is None:
                 raise ValueError(
                     "precond='mg' requires a supported structured "
@@ -363,15 +370,17 @@ class ShiftInvertOperator(LinearOperator):
         # shift-invert, valid at any σ
         from .fdm import fdm_solver_for
 
-        direct = fdm_solver_for(self.base)
+        direct = fdm_solver_for(self._structure)
         if direct is None:
             raise ValueError(
                 "precond='fdm' requires a Kronecker-sum operator "
                 "(Laplacian2D/3D) — use 'mg', 'jacobi', 'auto', or "
                 "'none'"
             )
+        solve = mesh_psolve(lambda V: direct(V, self.sigma), self._mesh,
+                            self.base.n)
         _count(self.counts, 0)
-        return direct(X.to(self.dtype), self.sigma).to(X.dtype)
+        return solve(X.to(self.dtype)).to(X.dtype)
 
 
 def block_minres_refined(
@@ -449,15 +458,32 @@ def default_inner_tol(dtype, tol: float) -> float:
     return float(max(floor, min(1e-11, 1e-4 * tol)))
 
 
-def _refuse_psolve_on_mesh(mesh, psolve) -> None:
-    """An explicit preconditioner (the assembled multigrid's V-cycle)
-    takes whole blocks; on a row mesh it would be handed a rank's rows."""
-    if mesh is not None and psolve is not None:
-        raise NotImplementedError(
-            "an explicit inner psolve (e.g. AssembledMultigrid.psolve) "
-            "under a row mesh: not ported yet (ROADMAP.md section A, the "
-            "multigrid levels on a mesh) — use the Jacobi preconditioner"
-        )
+def _replicated_whole(op):
+    """A ``ReplicatedOperator``'s whole base operator, else ``op``."""
+    from ..parallel.dist_spmm import ReplicatedOperator
+
+    return op.base if isinstance(op, ReplicatedOperator) else op
+
+
+def mesh_psolve(psolve, mesh, n: int):
+    """An explicit preconditioner ready for the blocks of a solve on
+    ``mesh`` (None: unsharded), which hold the rank's rows of n.
+
+    A mesh-aware one (a bound method of an object whose ``mesh`` is set:
+    ``AssembledMultigrid.from_grid(..., mesh=)``) takes the rank's rows
+    and is used as it is.  Any other takes whole blocks, and is applied
+    as GSPMD applies a replicated function, the JAX package's semantics:
+    gather the rows, apply it to the whole block on every rank, keep the
+    own rows."""
+    mesh_aware = getattr(getattr(psolve, "__self__", None), "mesh", None)
+    if psolve is None or mesh is None or mesh_aware is not None:
+        return psolve
+    lo, hi = mesh.row_range(n)
+
+    def replicated(X):
+        return psolve(mesh.gather_rows(X, n))[lo:hi]
+
+    return replicated
 
 
 def jacobi_psolve(d: torch.Tensor, clamp_quantile: float = 0.1,

@@ -104,7 +104,11 @@ def householder_qr(X, mesh=None, n=None):
                          "row count")
     Q, R = torch.linalg.qr(mesh.gather_rows(X, n), mode="reduced")
     lo, hi = mesh.row_range(n)
-    return Q[lo:hi].contiguous(), R
+    # the own rows in the column-major layout the unsharded QR returns:
+    # on the card a row-major copy sends the products after it down other
+    # GEMM kernels, whose sums round differently.  The copy (none on one
+    # rank, where the rows are all of Q) lets the whole Q go
+    return Q[lo:hi].mT.contiguous().mT, R
 
 
 def block_qr(X, method: str = "householder", mesh=None, n=None):

@@ -181,7 +181,8 @@ def operator_from_arrays(kind: str, arrays: dict[str, np.ndarray],
 
 
 def amg_from_arrays(levels: list, transfers: list, coarse_inv: np.ndarray,
-                    nu: int, dtype=torch.float64, device=None):
+                    nu: int, dtype=torch.float64, device=None, mesh=None,
+                    op0=None):
     """The port's ``AssembledMultigrid`` holding the JAX hierarchy's arrays.
 
     levels: one dict a level: "kind", "arrays", "static" (its operator, as
@@ -190,39 +191,90 @@ def amg_from_arrays(levels: list, transfers: list, coarse_inv: np.ndarray,
     "dinv", "w", "nc"} (the smoothing term applies that level's operator),
     {"type": "grid", "fine_dims", "coarse_dims", "P1s", "dof"} or
     {"type": "coo", "P"} (P as a scipy matrix).  coarse_inv: the dense
-    coarsest inverse; nu: the smoothing sweeps."""
+    coarsest inverse; nu: the smoothing sweeps.
+
+    ``mesh`` (a ``parallel.mesh.RowMesh``): the mesh-aware hierarchy of
+    ``AssembledMultigrid.from_grid(..., mesh=)``, on the mesh's device.
+    Level 0 takes ``op0`` (the level-0 matrix sharded over the mesh) for
+    its operator, the rank's rows of its "Winv", and the rank's rows of
+    its assembled prolongator: "grid" and "coo" carry it, and "agg" needs
+    the level's matrix too, as a scipy matrix under the level's key
+    "A" (P = (I − w·diag(dinv)·A)·P_tent).  The levels below are built as
+    without a mesh, replicated on every rank."""
     from ..ops.amg import (
         AssembledMultigrid,
         _AggTransfer,
         _AMGLevel,
         _CooTransfer,
         _GridTransfer,
+        _MeshTransfer,
+        _mesh_node_rows,
     )
 
-    dev = resolve_device(device)
-    lv = []
-    for spec in levels:
+    dev = resolve_device(mesh.device if mesh is not None else device)
+    lv, tr = [], []
+    for i, (spec, tspec) in enumerate(zip(levels, transfers)):
+        Winv = np.asarray(spec["Winv"])
+        dof = Winv.shape[1]
+        if mesh is not None and i == 0:
+            if op0 is None:
+                raise ValueError("a hierarchy on a mesh needs op0, the "
+                                 "level-0 matrix sharded over it")
+            lo, hi = _mesh_node_rows(mesh, op0.n, dof)
+            lv.append(_AMGLevel(None, dof, 0.0, dtype, dev, op=op0,
+                                Winv=Winv[lo // dof : hi // dof]))
+            tr.append(_MeshTransfer(_assembled_prolongator(spec, tspec),
+                                    mesh, dtype, dev))
+            continue
         op = operator_from_arrays(spec["kind"], spec["arrays"],
                                   spec.get("static", {}), dev)
-        Winv = np.asarray(spec["Winv"])
-        lv.append(_AMGLevel(None, Winv.shape[1], 0.0, dtype, dev, op=op,
-                            Winv=Winv))
-    tr = []
-    for level, spec in zip(lv, transfers):
-        kind = spec["type"]
+        level = _AMGLevel(None, dof, 0.0, dtype, dev, op=op, Winv=Winv)
+        lv.append(level)
+        kind = tspec["type"]
         if kind == "agg":
             tr.append(_AggTransfer(
-                (spec["Qpad"], spec["perm"], spec["posinv"]), level.op,
-                spec["dinv"], spec["w"], spec["nc"], dtype, dev))
+                (tspec["Qpad"], tspec["perm"], tspec["posinv"]), level.op,
+                tspec["dinv"], tspec["w"], tspec["nc"], dtype, dev))
         elif kind == "grid":
-            tr.append(_GridTransfer(spec["fine_dims"], spec["coarse_dims"],
-                                    spec["P1s"], spec["dof"]))
+            tr.append(_GridTransfer(tspec["fine_dims"], tspec["coarse_dims"],
+                                    tspec["P1s"], tspec["dof"]))
         elif kind == "coo":
-            tr.append(_CooTransfer(spec["P"], dtype, dev))
+            tr.append(_CooTransfer(tspec["P"], dtype, dev))
         else:
             raise ValueError(f"unknown transfer type {kind!r}")
     return AssembledMultigrid(lv, tr, np.asarray(coarse_inv), int(nu), dtype,
-                              dev)
+                              dev, mesh)
+
+
+def _assembled_prolongator(level: dict, transfer: dict):
+    """A level's prolongator P (n, n_c) as a scipy matrix, from its
+    transfer's arrays (and, for "agg", the level's matrix ``level["A"]``)."""
+    import scipy.sparse as sp
+
+    from ..ops.amg import _grid_prolongator
+
+    kind = transfer["type"]
+    if kind == "coo":
+        return sp.csr_matrix(transfer["P"])
+    if kind == "grid":
+        return _grid_prolongator(transfer["P1s"], int(transfer["dof"]))
+    if kind != "agg":
+        raise ValueError(f"unknown transfer type {kind!r}")
+    if level.get("A") is None:
+        raise ValueError("an 'agg' level 0 on a mesh needs its matrix as "
+                         "the level's 'A' (a scipy matrix)")
+    Qpad = np.asarray(transfer["Qpad"], dtype=np.float64)
+    na, s_max, nb = Qpad.shape
+    perm = np.asarray(transfer["perm"]).reshape(na, s_max)
+    A = sp.csr_matrix(level["A"]).astype(np.float64)
+    n = A.shape[0]
+    live = np.broadcast_to((perm < n)[:, :, None], Qpad.shape)  # slot n: pad
+    rows = np.broadcast_to(perm[:, :, None], Qpad.shape)[live]
+    cols = np.arange(na)[:, None, None] * nb + np.arange(nb)
+    cols = np.broadcast_to(cols, Qpad.shape)[live]
+    Pt = sp.csr_matrix((Qpad[live], (rows, cols)), shape=(n, na * nb))
+    dinv = sp.diags(np.asarray(transfer["dinv"], dtype=np.float64))
+    return (Pt - float(transfer["w"]) * (dinv @ (A @ Pt))).tocsr()
 
 
 def series_from_arrays(base, coeffs: np.ndarray, lo: float, hi: float):

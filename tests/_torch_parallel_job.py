@@ -1,5 +1,6 @@
 """The multi-process side of the row-mesh parity tests
-(tests/test_torch_parallel_ops.py and tests/test_torch_parallel_solve.py).
+(tests/test_torch_parallel_ops.py, tests/test_torch_parallel_solve.py and
+tests/test_torch_parallel_scipy.py).
 
 ``run_job(suite, nranks, outdir)`` spawns ``nranks`` CPU processes of this
 file, joined into one gloo process group; each rank builds the port's
@@ -159,6 +160,143 @@ def svd_dense():
     V, _ = np.linalg.qr(rng.standard_normal((40, 40)))
     s = np.geomspace(10.0, 0.1, 40)
     return (U * s) @ V.T
+
+
+# --- the scipy front door and the multigrid on the mesh ----------------------
+
+SCIPY_RANKS = 2
+# fem_elasticity_3d(7): n = 1,344 (a band of 672 rows holds 224 whole
+# nodes), packed at bm = bk = 32; the coarsest sizes give the grid
+# hierarchy 2 levels (1,344, 192) and the aggregation one 2 (1,344, 81).
+# fem_elasticity_3d(15) (n = 11,520) takes the grid hierarchy's defaults
+# (2 levels) and the default level-0 operator (bk = 128).
+FEM_NX, FEM_BIG = 7, 15
+GRID_COARSEST, SA_COARSEST = 150, 60
+HIERARCHIES = ("grid_f64", "sa_f64", "grid_f32", "sa_f32")
+# the pencil solve's outer tol (ν-space, ν ~ 100): loose for time, its
+# eigenvalues still well within the test's 1e-9 of scipy's
+PENCIL_TOL = 1e-5
+# the shift-invert applies' inner MINRES target
+SI_INNER_TOL = 1e-13
+# the 2-D Laplacian that eigsh's auto route gives an aggregation AMG
+# (a host sparse matrix of n ≥ 4,000 and a shift at the bottom)
+LAP_NX = 64
+LAP_SIGMA = 0.05  # an interior shift of the 64² Laplacian (FDM's cases)
+
+
+def fem_dims(nx=FEM_NX):
+    """The node grid of fem_elasticity_3d(nx) after clamping."""
+    return (nx, nx + 1, nx + 1)
+
+
+def fem_pencil(nx=FEM_NX):
+    """K = fem_elasticity_3d(nx) and its lumped mass (numpy diagonal)."""
+    from rbl_tpu_torch.utils.fem import fem_elasticity_3d, lumped_mass
+
+    return fem_elasticity_3d(nx), lumped_mass(nx)
+
+
+def laplacian_2d(nx=LAP_NX):
+    T = sp.diags([-np.ones(nx - 1), 2.0 * np.ones(nx), -np.ones(nx - 1)],
+                 [-1, 0, 1])
+    return sp.kronsum(T, T).tocsr()
+
+
+def pencil_mass(n=300):
+    """An SPD diagonal M for eigsh's pencil on eig_sym."""
+    return sp.diags(np.linspace(1.0, 2.0, n)).tocsr()
+
+
+def vcycle_block(n, seed=5):
+    return np.random.default_rng(seed).standard_normal((n, 4))
+
+
+def eig_sym(n=300, seed=0):
+    """tests/test_torch_compat.py's symmetric sparse matrix."""
+    rng = np.random.default_rng(seed)
+    A = sp.random(n, n, density=0.02, random_state=rng)
+    A = sp.csr_matrix(A + A.T)
+    A.setdiag(rng.standard_normal(n))
+    return A
+
+
+def three_isolated():
+    """tests/test_torch_compat.py's maxiter spectrum: three isolated values
+    on top of 197 in [0, 1]."""
+    d = np.concatenate([np.linspace(0.0, 1.0, 197), [1000.0, 900.0, 800.0]])
+    return sp.diags(d).tocsr()
+
+
+def three_isolated_sm():
+    """Its shift-invert twin: three isolated values at the bottom."""
+    d = 1.0 + np.arange(300.0) / 1e5
+    return sp.diags(np.concatenate([[1e-3, 2e-3, 3e-3], d[:197]]))
+
+
+def svd_lm():
+    """A sparse 200 × 80 factor (both sides split over 2 ranks: the
+    sharded COO pair)."""
+    return sp.random(200, 80, density=0.1,
+                     random_state=np.random.default_rng(31)).tocsr()
+
+
+def svd_sm():
+    """tests/test_torch_compat.py's SM factor (dense: replicated)."""
+    rng = np.random.default_rng(21)
+    return rng.standard_normal((70, 50)) + 5.0 * np.eye(70, 50)
+
+
+def split_node_matrix():
+    """An SPD matrix of 225 nodes of 6 unknowns (n = 1,350): a band of
+    675 rows over 2 ranks splits a node."""
+    n = 1350
+    return sp.diags([-np.ones(n - 1), 4.0 * np.ones(n), -np.ones(n - 1)],
+                    [-1, 0, 1]).tocsr()
+
+
+def pack_hierarchy(name, levels, transfers, coarse_inv, nu) -> dict:
+    """A hierarchy in ``amg_from_arrays``'s layout as flat .npz entries."""
+    out = {f"{name}__nlev": np.asarray(len(levels)),
+           f"{name}__coarse_inv": np.asarray(coarse_inv),
+           f"{name}__nu": np.asarray(nu)}
+    for i, lv in enumerate(levels):
+        p = f"{name}__L{i}"
+        out[f"{p}__kind"] = np.asarray(lv["kind"])
+        out[f"{p}__Winv"] = np.asarray(lv["Winv"])
+        for k, v in lv["arrays"].items():
+            out[f"{p}__a_{k}"] = np.asarray(v)
+        for k, v in lv["static"].items():
+            out[f"{p}__s_{k}"] = np.asarray(v)
+    for i, t in enumerate(transfers):
+        p = f"{name}__T{i}"
+        for k, v in t.items():
+            if k == "P1s":
+                for j, P in enumerate(v):
+                    out[f"{p}__P1s{j}"] = np.asarray(P)
+            else:
+                out[f"{p}__{k}"] = np.asarray(v)
+    return out
+
+
+def unpack_hierarchy(z: dict, name):
+    """``pack_hierarchy``'s inverse: (levels, transfers, coarse_inv, nu)."""
+    levels, transfers = [], []
+    for i in range(int(z[f"{name}__nlev"])):
+        p = f"{name}__L{i}"
+        levels.append(dict(
+            kind=str(z[f"{p}__kind"]), Winv=z[f"{p}__Winv"],
+            arrays={k[len(p) + 4:]: v for k, v in z.items()
+                    if k.startswith(f"{p}__a_")},
+            static={k[len(p) + 4:]: v for k, v in z.items()
+                    if k.startswith(f"{p}__s_")}))
+        p = f"{name}__T{i}"
+        t = {k[len(p) + 2:]: v for k, v in z.items()
+             if k.startswith(f"{p}__") and "__P1s" not in k}
+        t["type"] = str(t["type"])
+        if t["type"] == "grid":
+            t["P1s"] = [z[f"{p}__P1s{j}"] for j in range(3)]
+        transfers.append(t)
+    return levels, transfers, z[f"{name}__coarse_inv"], int(z[f"{name}__nu"])
 
 
 # --- the launcher ------------------------------------------------------------
@@ -518,19 +656,193 @@ def _solve_suite(mesh, out, inputs, outdir):
     out["race__overruled"] = np.asarray(
         mesh.stats["agree_overruled"] - before_over)
 
-    # paths not ported to the mesh raise NotImplementedError
-    checks = {
-        "amg_psolve": lambda: ShiftInvertOperator.shift(
-            lap8, 0.0, psolve=lambda X: X),
-        "eigsh": lambda: rtt.eigsh(coo256(), k=2, cfg=cfg()),
+
+def _scipy_suite(mesh, out, inputs, outdir):
+    import torch
+    from scipy.sparse.linalg import ArpackNoConvergence
+
+    import rbl_tpu_torch as rtt
+    from rbl_tpu_torch.ops.amg import AssembledMultigrid
+    from rbl_tpu_torch.parallel import dist_spmm as D
+    from rbl_tpu_torch.utils.convert import amg_from_arrays
+
+    f64 = torch.float64
+    K, mass = fem_pencil()
+    n = K.shape[0]
+
+    def cfg(**kw):
+        return rtt.RBLConfig(mesh=mesh, device="cpu", **kw)
+
+    def whole(V, rows):
+        return mesh.gather_rows(V, rows).numpy()
+
+    # the mesh V-cycles: the JAX hierarchy carried across, and the port's
+    # own build, both on K's bands (the packed operator, bm = bk = 32)
+    K_sh = {dt: D.ShardedBlockSparseOperator.from_scipy(
+        K, mesh, dtype=dt, bm=32, bk=32) for dt in (f64, torch.float32)}
+    X = vcycle_block(n)
+    amgs = {}
+    for h in HIERARCHIES:
+        build, prec = h.split("_")
+        dt = f64 if prec == "f64" else torch.float32
+        levels, transfers, coarse_inv, nu = unpack_hierarchy(inputs, h)
+        levels[0]["A"] = K  # an aggregation level 0 assembles P from it
+        kw = dict(dtype=dt, mesh=mesh, op0=K_sh[dt])
+        amgs[h, "converted"] = amg_from_arrays(levels, transfers, coarse_inv,
+                                               nu, **kw)
+        amgs[h, "built"] = (
+            AssembledMultigrid.from_grid(K, fem_dims(), dof=3,
+                                         coarsest_n=GRID_COARSEST, **kw)
+            if build == "grid" else
+            AssembledMultigrid.smoothed_aggregation(
+                K, dof=3, coarsest_n=SA_COARSEST, **kw))
+        Xl = mesh.shard_rows(torch.from_numpy(X).to(dt))
+        for route in ("converted", "built"):
+            amg = amgs[h, route]
+            before = mesh.stats["all_reduce"]
+            Y = amg.psolve(Xl)
+            out[f"vcycle_{h}_{route}__reduces"] = np.asarray(
+                mesh.stats["all_reduce"] - before)
+            out[f"vcycle_{h}_{route}__levels"] = np.asarray(len(amg.levels))
+            out[f"vcycle_{h}_{route}__Y"] = whole(Y, n)
+
+    K_big, _ = fem_pencil(FEM_BIG)
+    big = AssembledMultigrid.from_grid(K_big, fem_dims(FEM_BIG), dof=3,
+                                       mesh=mesh)
+    out["vcycle_fem15__route"] = np.asarray(type(big.levels[0].op).__name__)
+    out["vcycle_fem15__Y"] = whole(big.psolve(mesh.shard_rows(
+        torch.from_numpy(vcycle_block(K_big.shape[0])))), K_big.shape[0])
+
+    # no level on the band (n ≤ coarsest_n): the dense inverse takes the
+    # gathered whole
+    small = AssembledMultigrid.from_grid(K, fem_dims(), dof=3, coarsest_n=n,
+                                         mesh=mesh)
+    out["vcycle_nolevels__levels"] = np.asarray(len(small.levels))
+    out["vcycle_nolevels__Y"] = whole(small.psolve(mesh.shard_rows(
+        torch.from_numpy(X))), n)
+
+    # the vibration pencil, M sharded (its Chebyshev roots), with the mesh
+    # V-cycle as the inner psolve
+    amg_mesh = amgs["grid_f64", "built"]
+    M_sh = D.ShardedCooSpMM.from_scipy(sp.diags(mass).tocsr(), mesh,
+                                       dtype=f64)
+    before = dict(mesh.stats)
+    res, info = rtt.rbl_generalized(
+        K_sh[f64], M_sh, 4, cfg=cfg(block_size=4, tol=PENCIL_TOL),
+        which="LM", sigma=0.0, inner_psolve=amg_mesh.psolve, return_info=True)
+    out["pencil_amg__w"] = np.asarray(res.eigenvalues, dtype=np.float64)
+    out["pencil_amg__converged"] = np.asarray(bool(res.converged))
+    out["pencil_amg__V"] = whole(res.eigenvectors, n)
+    out["pencil_amg__counts"] = np.asarray(
+        [info.inner_solves, info.inner_iterations,
+         mesh.stats["all_reduce"] - before["all_reduce"]])
+
+    # one apply of each shift-invert operator over the sharded K with an
+    # explicit psolve: the mesh cycle (taken as it is) and an unsharded
+    # hierarchy's (gathered, cycled whole, own rows kept); the pencil's
+    # with M lumped (its exact diagonal root, the rank's rows)
+    from rbl_tpu_torch.ops.generalized import GeneralizedShiftInvertOperator
+    from rbl_tpu_torch.ops.minres import ShiftInvertOperator
+
+    amg_whole = AssembledMultigrid.from_grid(K, fem_dims(), dof=3,
+                                             coarsest_n=GRID_COARSEST,
+                                             device="cpu")
+    lo, hi = mesh.row_range(n)
+    zero = torch.zeros((), dtype=f64)
+    ops = {
+        "si_mesh_amg": ShiftInvertOperator.shift(
+            K_sh[f64], 0.0, inner_tol=SI_INNER_TOL, psolve=amg_mesh.psolve),
+        "si_replicated": ShiftInvertOperator.shift(
+            K_sh[f64], 0.0, inner_tol=SI_INNER_TOL, psolve=amg_whole.psolve),
+        "gsi_mesh_amg": GeneralizedShiftInvertOperator(
+            A=K_sh[f64], M=M_sh, sigma=zero, inner_tol=SI_INNER_TOL,
+            msqrt=rtt.DiagonalOperator(torch.from_numpy(np.sqrt(mass[lo:hi]))),
+            psolve=amg_mesh.psolve),
     }
-    for name, call in checks.items():
+    Xs = mesh.shard_rows(torch.from_numpy(vcycle_block(n, seed=6)))
+    for case, op in ops.items():
+        before = dict(mesh.stats)
+        Y = op.apply(Xs)
+        out[f"{case}__counts"] = np.asarray(
+            [op.counts["iterations"],
+             mesh.stats["all_reduce"] - before["all_reduce"],
+             mesh.stats["all_gather"] - before["all_gather"]])
+        out[f"{case}__Y"] = whole(Y, n)
+
+    # a replicated Laplacian keeps the exact FDM solve: the gathered
+    # block solved whole, the own rows kept
+    lap_n = LAP_NX * LAP_NX
+    si_fdm = ShiftInvertOperator.shift(
+        D.on_mesh(rtt.Laplacian2D(LAP_NX, LAP_NX, device="cpu"), mesh),
+        LAP_SIGMA)
+    before = dict(mesh.stats)
+    Y = si_fdm.apply(mesh.shard_rows(torch.from_numpy(
+        vcycle_block(lap_n, seed=7))))
+    out["si_fdm_replicated__precond"] = np.asarray(si_fdm.precond)
+    out["si_fdm_replicated__counts"] = np.asarray(
+        [si_fdm.counts["iterations"],
+         mesh.stats["all_reduce"] - before["all_reduce"],
+         mesh.stats["all_gather"] - before["all_gather"]])
+    out["si_fdm_replicated__Y"] = whole(Y, lap_n)
+
+    # eigsh: the plain ends, BE, σ = 0 with the AMG its auto route builds
+    # (replicated), an interior σ on the Laplacian operator (FDM), and a
+    # pencil
+    def keep_eigsh(case, got):
+        w, V = got if isinstance(got, tuple) else (got, None)
+        out[f"{case}__w"] = np.asarray(w)
+        if V is not None:
+            out[f"{case}__V"] = V
+
+    keep_eigsh("eigsh_lm", rtt.eigsh(eig_sym(300, 0), k=6, tol=1e-9,
+                                     cfg=cfg()))
+    keep_eigsh("eigsh_sa", rtt.eigsh(eig_sym(300, 1), k=5, which="SA",
+                                     tol=1e-9, return_eigenvectors=False,
+                                     cfg=cfg()))
+    keep_eigsh("eigsh_be", rtt.eigsh(eig_sym(300, 4), k=5, which="BE",
+                                     tol=1e-9, cfg=cfg()))
+    keep_eigsh("eigsh_sigma0_auto", rtt.eigsh(laplacian_2d(), 4, sigma=0.0,
+                                              cfg=cfg()))
+    keep_eigsh("eigsh_lap_fdm", rtt.eigsh(
+        rtt.Laplacian2D(LAP_NX, LAP_NX, device="cpu"), 4, sigma=LAP_SIGMA,
+        cfg=cfg()))
+    keep_eigsh("eigsh_pencil_la", rtt.eigsh(
+        eig_sym(300, 2), 4, M=pencil_mass(), which="LA", tol=1e-9, cfg=cfg()))
+
+    # maxiter exhausted: ArpackNoConvergence on every rank, with the whole
+    # partial vectors
+    for case, call in (
+            ("maxiter", lambda: rtt.eigsh(three_isolated(), k=8, maxiter=1,
+                                          ncv=10, b=1, cfg=cfg())),
+            ("maxiter_sm", lambda: rtt.eigsh(
+                three_isolated_sm(), k=8, which="SM", maxiter=1, ncv=10, b=1,
+                tol=1e-12, cfg=cfg()))):
         try:
             call()
-            raised = "no"
-        except NotImplementedError as e:
-            raised = "ROADMAP" if "ROADMAP" in str(e) else "other"
-        out[f"raises__{name}"] = np.asarray(raised)
+            out[f"{case}__raised"] = np.asarray("nothing")
+        except ArpackNoConvergence as e:
+            out[f"{case}__raised"] = np.asarray(type(e).__name__)
+            out[f"{case}__w"] = np.asarray(e.eigenvalues)
+            out[f"{case}__V"] = np.asarray(e.eigenvectors)
+
+    for case, B, kw in (("svds_lm", svd_lm(), dict(k=5)),
+                        ("svds_sm", svd_sm(), dict(k=4, which="SM"))):
+        U, sv, Vh = rtt.svds(B, cfg=cfg(), **kw)
+        out[f"{case}__s"] = np.asarray(sv)
+        out[f"{case}__U"] = U
+        out[f"{case}__Vh"] = Vh
+
+    try:  # a whole block, as an unsharded solve would hand it
+        amg_mesh.psolve(torch.from_numpy(X))
+        out["whole_block__raised"] = np.asarray("nothing")
+    except ValueError:
+        out["whole_block__raised"] = np.asarray("ValueError")
+    try:
+        AssembledMultigrid.smoothed_aggregation(split_node_matrix(), dof=6,
+                                                coarsest_n=100, mesh=mesh)
+        out["split_node__raised"] = np.asarray("nothing")
+    except ValueError:
+        out["split_node__raised"] = np.asarray("ValueError")
 
 
 def _worker(suite, rank, nranks, port, outdir):
@@ -552,8 +864,8 @@ def _worker(suite, rank, nranks, port, outdir):
         with np.load(path) as z:
             inputs = {k: z[k] for k in z.files}
     out = {}
-    {"ops": _ops_suite, "solve": _solve_suite}[suite](mesh, out, inputs,
-                                                      outdir)
+    {"ops": _ops_suite, "solve": _solve_suite,
+     "scipy": _scipy_suite}[suite](mesh, out, inputs, outdir)
     mesh.barrier()
     shutdown_cluster()
     np.savez(os.path.join(outdir, f"{suite}_r{rank}.npz"), **out)

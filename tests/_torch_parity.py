@@ -31,6 +31,32 @@ def bsr_from_jax(jax_op, device=CPU):
     return operator_from_arrays("BlockSparseOperator", arrays, static, device)
 
 
+def jax_hierarchy_arrays(amg):
+    """A JAX AssembledMultigrid's levels and transfers, as numpy, in the
+    layout of ``utils.convert.amg_from_arrays``."""
+    levels, transfers = [], []
+    for lv in amg.levels:
+        op = lv.op
+        kind = type(op).__name__
+        if kind == "DiaOperator":
+            arrays, static = {"data": np.asarray(op.data)}, {"offsets": op.offsets,
+                                                             "_n": op._n}
+        else:
+            arrays, static = ({"cols": np.asarray(op.cols), "vals": np.asarray(op.vals)},
+                              {"_n": op._n})
+        levels.append(dict(kind=kind, arrays=arrays, static=static,
+                           Winv=np.asarray(lv.Winv)))
+    for t in amg.transfers:
+        if type(t).__name__ == "_AggTransfer":
+            transfers.append(dict(type="agg", Qpad=np.asarray(t.Qpad),
+                                  perm=np.asarray(t.perm), posinv=np.asarray(t.posinv),
+                                  dinv=np.asarray(t.dinv), w=t.w, nc=t.nc))
+        else:
+            transfers.append(dict(type="grid", fine_dims=t.fine_dims,
+                                  coarse_dims=t.coarse_dims, P1s=t.P1s, dof=t.dof))
+    return levels, transfers
+
+
 def random_sym(n, density, seed=0):
     rng = np.random.default_rng(seed)
     A = sp.random(n, n, density=density, random_state=rng)

@@ -21,7 +21,7 @@ from rbl_tpu.ops import amg as jamg
 from rbl_tpu.utils.fem import fem_elasticity_3d
 
 import rbl_tpu_torch as rtt
-from _torch_parity import CPU, rel_err
+from _torch_parity import CPU, jax_hierarchy_arrays, rel_err
 from rbl_tpu_torch.ops import amg as tamg
 from rbl_tpu_torch.ops.amg import (
     AssembledMultigrid,
@@ -42,32 +42,6 @@ def _fem_coords(nx):
     k, j, i = np.meshgrid(g, g, g, indexing="ij")
     coords = np.stack([i.ravel(), j.ravel(), k.ravel()], axis=1)
     return coords[nnx * nnx:]  # clamped z=0 face removed
-
-
-def _jax_hierarchy_arrays(amg):
-    """A JAX AssembledMultigrid's arrays, as numpy, in the converter's
-    layout."""
-    levels, transfers = [], []
-    for lv in amg.levels:
-        op = lv.op
-        kind = type(op).__name__
-        if kind == "DiaOperator":
-            arrays, static = {"data": np.asarray(op.data)}, {"offsets": op.offsets,
-                                                             "_n": op._n}
-        else:
-            arrays, static = ({"cols": np.asarray(op.cols), "vals": np.asarray(op.vals)},
-                              {"_n": op._n})
-        levels.append(dict(kind=kind, arrays=arrays, static=static,
-                           Winv=np.asarray(lv.Winv)))
-    for t in amg.transfers:
-        if isinstance(t, jamg._AggTransfer):
-            transfers.append(dict(type="agg", Qpad=np.asarray(t.Qpad),
-                                  perm=np.asarray(t.perm), posinv=np.asarray(t.posinv),
-                                  dinv=np.asarray(t.dinv), w=t.w, nc=t.nc))
-        else:
-            transfers.append(dict(type="grid", fine_dims=t.fine_dims,
-                                  coarse_dims=t.coarse_dims, P1s=t.P1s, dof=t.dof))
-    return levels, transfers
 
 
 def _builds(build, N, **kw):
@@ -130,7 +104,7 @@ def test_vcycle_matches_jax(build, route):
     the CPU in both packages."""
     A, jax_amg, port_build = _builds(build, 8, coarsest_n=300)
     if route == "converted":
-        levels, transfers = _jax_hierarchy_arrays(jax_amg)
+        levels, transfers = jax_hierarchy_arrays(jax_amg)
         amg = amg_from_arrays(levels, transfers, jax_amg.coarse_inv, jax_amg.nu, device=CPU)
     else:
         amg = port_build(coarsest_n=300)

@@ -293,14 +293,6 @@ def test_poll_race_ranks_agree(ranks):
     assert bool(ranks[0]["race__converged"])
 
 
-@pytest.mark.parametrize("name", ["amg_psolve", "eigsh"])
-def test_paths_not_ported_to_the_mesh_raise(name, ranks):
-    """Each deferred path raises NotImplementedError naming ROADMAP A under
-    a mesh, on every rank — never a silent single-rank solve."""
-    for rk in ranks:
-        assert str(rk[f"raises__{name}"]) == "ROADMAP"
-
-
 def test_cluster_info_keys(ranks):
     from rbl_tpu.parallel.distributed import cluster_info
 
