@@ -166,6 +166,32 @@ a user calls, and checks the answers:
      Vh bitwise equal, s within 1e-8 of one rank's).  Then B2 on fem47's K
      (f64 b=8, one rank) and both entry points on the mesh hierarchy's
      replicated BSR levels against the plain version, timed.
+ 25. the port's examples through their ``main``, as a user runs them on
+     the card: examples/torch_benchmark.py on fem_elasticity_3d(42) (k =
+     100, one sweep at b = 4 and one at b = 8, tol 1e-3, f32, two repeats:
+     cold and warm walls), each solve's head 90 within 1e-2 of the ARPACK
+     ground truth, each sweep on BSR and launching B1, and on the 512²
+     Laplacian (k = 50, b = 16) within bench.py's 0.025 of the
+     analytic spectrum; examples/torch_images.py at its defaults (480 ×
+     640, rank 50, f64): σ within 1e-8 of numpy's SVD, the relative
+     Frobenius error within 1e-6 relative of the exact truncation's;
+     examples/torch_generalized.py at its defaults (n = 2,000, k = 6): the
+     vibration and mode-3 eigenvalues within 1e-8 of dense
+     scipy.linalg.eigh(K, M), the buckling values within 1e-6 of the dense
+     oracle, the 3-D grid-AMG solve's residual ≤ 1e-6·‖A‖; B1's
+     launches by example.  Then both entry points against the plain
+     version, timed, on each fem42 sweep's operator at its b and on every
+     BSR level of the 3-D hierarchy at the 3-D solve's b = 4;
+ 26. the JAX package's exact-spectrum gates on the card, at its own
+     tolerances (the cases of tests/_torch_gates.py, which the CPU tests
+     run too): tests/test_spectra.py's 11 (1e-13), the fuzz shapes at
+     seeds 0 and 1 and with adaptive_reorth_max=4, the narrow window, the
+     slow separation, the negative dominant case and the host-offload
+     shapes (pinned panels; 1e-10), the sparse operators against eigsh,
+     f32 exhaustion (top 10, 1e-3), the restarted shapes (1e-10), then
+     which="LA" (1e-9), "SA" (1e-8), deflate= (1e-10) and the two
+     ValueError checks; one line a group with its count, worst error and
+     wall.
 
 Phases 11-14, 17, 19, 20 and 22 launch B1/B2 through BlockSparseOperator.apply.
 Phase 14's fem42 polish applies A to k + buffer + random columns at once
@@ -178,7 +204,7 @@ path's own count; phases 11-13, 17, 20 and 22 must launch B1, phase 14
 both B1 (its f32 coarse sweep) and B2, phase 19 one of them, phase 23
 B2 (one rank) and B1 (each of two ranks), and phase 24 both B1 (the
 replicated levels) and B2 (fem47's K) on one rank and B1 on two
-(``launches_by_phase["24 (2 ranks)"]``).  After
+(``launches_by_phase["24 (2 ranks)"]``), and phase 25 B1.  After
 phase 17 each BSR level's product is also timed through torch.sparse CSR
 (the level's nonzeros), and after phase 14 both entry points are timed at
 90 columns too.  The last two lines are the kernels' JSON
@@ -1765,12 +1791,14 @@ def check_path_shapes(opK, amg, kernels: dict, card: str):
             level_shape_rows(op, label, kernels, card, phase=17)
 
 
-def level_shape_rows(op, label: str, kernels: dict, card: str, phase: int):
-    """Both packed entry points against the plain version on one BSR level
-    operator at b = 8, timed beside torch.sparse CSR of its nonzeros and
-    the bound; one row each in ``kernels[entry]["path_shapes"]``.  The
-    entry the level dispatches to is observed: one apply at b = 8, and the
-    launch count that moved."""
+def level_shape_rows(op, label: str, kernels: dict, card: str, phase: int,
+                     b: int = 8):
+    """Both packed entry points against the plain version on one BSR
+    operator at ``b`` columns (the width of the solve that applies it),
+    timed beside torch.sparse CSR of its nonzeros and the bound; one row
+    each in ``kernels[entry]["path_shapes"]``.  The entry the operator
+    dispatches to is observed: one apply at ``b``, and the launch count
+    that moved."""
     import torch
 
     from rbl_tpu_torch.ops.spmm import bsr
@@ -1778,18 +1806,18 @@ def level_shape_rows(op, label: str, kernels: dict, card: str, phase: int):
     dtype = op.dtype
     entries = ("bsr_spmm_packed_resident", "bsr_spmm_packed")
     before = [getattr(bsr, e).launches for e in entries]
-    op.apply(torch.zeros((op._n, 8), dtype=dtype, device="cuda"))
+    op.apply(torch.zeros((op._n, b), dtype=dtype, device="cuda"))
     moved = [e for e, n0 in zip(entries, before) if getattr(bsr, e).launches > n0]
     if len(moved) != 1:
-        raise AssertionError(f"{label} {dtype} b=8 launched {moved or 'no packed entry'}")
+        raise AssertionError(f"{label} {dtype} b={b} launched {moved or 'no packed entry'}")
     used = moved[0]
     # the library's time for the same product: the level's nonzeros as
     # torch.sparse CSR
     csr = csr_from_packed(op)
-    Xl = padded_x(op, 8, seed=17)[: op._n]
+    Xl = padded_x(op, b, seed=17)[: op._n]
     lib_ms = time_ms(lambda: torch.sparse.mm(csr, Xl))
     Yp = bsr.bsr_spmm_packed_reference(
-        op.tile_cols, op.hcount, op.rptr, op.vals, padded_x(op, 8, seed=17),
+        op.tile_cols, op.hcount, op.rptr, op.vals, padded_x(op, b, seed=17),
         bm=op.bm, bk=op.bk, unroll=op.unroll)[: op._n]
     lib_rel = float((torch.sparse.mm(csr, Xl) - Yp).abs().max() / Yp.abs().max())
     if not lib_rel < TOL[str(dtype)[6:]]:
@@ -1798,16 +1826,16 @@ def level_shape_rows(op, label: str, kernels: dict, card: str, phase: int):
     del csr
     for entry in entries:
         abs_err, rel, ms, plain_ms, moved, ops = compare_entry(
-            entry, op, 8, seed=17, timing=True)
+            entry, op, b, seed=17, timing=True)
         lim = bound(moved, ops)
         kernels[entry].setdefault("path_shapes", []).append(dict(
             phase=phase, shape=f"{label} n={op._n} plan ({op.bm}, {op.unroll}) "
-            f"{str(dtype)[6:]} b=8", dispatched=entry == used,
+            f"{str(dtype)[6:]} b={b}", dispatched=entry == used,
             max_abs_err=abs_err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
             **lim))
         tag = " (the path's entry)" if entry == used else ""
         print(f"{entry} {label} (n={op._n}, plan ({op.bm}, {op.unroll}), "
-              f"{op.nnz_blocks} tiles) b=8 {dtype}{tag}: "
+              f"{op.nnz_blocks} tiles) b={b} {dtype}{tag}: "
               f"rel err {rel:.2e}, kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
               f"torch.sparse CSR {lib_ms:.4f} ms, "
               f"bound {lim['bound_ms']:.4f} ms ({lim['bound_ms'] / ms:.0%})  "
@@ -2226,6 +2254,249 @@ def panel_bk_sweep(A, csr32, card: str):
         del op, X, tiles
         torch.cuda.empty_cache()
     return rows
+
+
+def torch_gates():
+    """tests/_torch_gates.py: the JAX package's exact-spectrum cases and
+    the loader of the examples/ scripts."""
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    import _torch_gates
+
+    return _torch_gates
+
+
+def example_sweep(bench, argv, gate, label: str, card: str):
+    """One examples/torch_benchmark.py sweep through its ``main``; each
+    solve's eigenvalues must pass ``gate`` (a function returning the
+    error, raising past its tolerance).  Returns the operator it solved
+    and the B1 launches of the sweep."""
+    from rbl_tpu_torch.ops.spmm import bsr
+
+    n0 = bsr.bsr_spmm_packed_resident.launches
+    runs, op = bench.main(argv)
+    launches = bsr.bsr_spmm_packed_resident.launches - n0
+    for b, reps in runs.items():
+        errs = [gate(res.eigenvalues, f"{label} b={b}") for res, _ in reps]
+        res, _ = reps[-1]
+        walls = ", ".join(f"{w:.3f}" for _, w in reps)
+        print(f"25 {label} b={b}: walls {walls} s (cold first), max rel err "
+              f"{max(errs):.3e}, kryl_dim {res.kryl_dim}, converged "
+              f"{res.converged}, {type(op).__name__}, B1 launches {launches}  "
+              f"[{card}]")
+    return op, launches
+
+
+def phase_examples(head: np.ndarray, card: str):
+    """Phase 25: the port's three examples through their ``main``, as a
+    user runs them on the card.  (a) examples/torch_benchmark.py on fem42
+    (k = 100; tol 1e-3; f32), one sweep at b = 4 and one at b = 8, each
+    solve's head 90 within 1e-2 of the ARPACK ground truth, each sweep on
+    BSR and launching B1; (b) the same on the 512² Laplacian (b = 16, k =
+    50), within bench.py's 0.025 of the analytic spectrum; (c)
+    examples/torch_images.py at its defaults (480 × 640, rank 50, f64):
+    σ within 1e-8 of numpy's SVD, the relative Frobenius error within
+    1e-6 relative of the exact truncation's; (d) examples/
+    torch_generalized.py at its defaults (n = 2,000, k = 6): the
+    vibration and mode-3 eigenvalues within 1e-8 of dense
+    scipy.linalg.eigh(K, M), the buckling values within 1e-6 of the dense
+    oracle the example computes, the 3-D AMG solve's residual ≤ 1e-6·‖A‖.
+    Prints B1's launches by part; returns fem42's operator of each sweep
+    (by b) and the 3-D solve's AMG hierarchy, for the shape checks."""
+    import scipy.linalg
+    import scipy.sparse.linalg as spla
+
+    from rbl_tpu_torch.ops.spmm import bsr
+    from rbl_tpu_torch.utils.fem import fem_elasticity_3d
+
+    G = torch_gates()
+    bench = G.load_example("torch_benchmark")
+    dev = ["--device", "cuda"]
+    B1 = bsr.bsr_spmm_packed_resident
+
+    def fem_gate(w, label):
+        err = float(np.max(np.abs(np.asarray(w)[: len(head)] - head) / head))
+        if not err < 1e-2:
+            raise AssertionError(f"{label}: max rel error {err:.3e} vs ARPACK head ≥ 1e-2")
+        return err
+
+    def lap_gate(w, label):
+        err = laplacian_check(w, 512)
+        if not err < 0.025:
+            raise AssertionError(f"{label}: eigenvalues off by {err:.3e} ≥ 0.025")
+        return err
+
+    split, fem_ops = {}, {}
+    for b in (4, 8):
+        op, split[f"fem42 b={b}"] = example_sweep(
+            bench, ["--fem3d", "42", "--k", "100", "--blocks", str(b), "--tol",
+                    "1e-3", "--repeat", "2", *dev], fem_gate, "fem42", card)
+        if not isinstance(op, bsr.BlockSparseOperator):
+            raise AssertionError(f"fem42 b={b}: the example's operator took the "
+                                 f"{type(op).__name__} route, not BSR")
+        if split[f"fem42 b={b}"] < 1:
+            raise AssertionError(f"fem42 b={b}: the example's sweep never launched B1")
+        fem_ops[b] = op
+    _, split["lap2d 512² b=16"] = example_sweep(
+        bench, ["--laplacian", "512", "--k", "50", "--blocks", "16", "--tol",
+                "1e-3", "--repeat", "2", *dev], lap_gate, "lap2d 512²", card)
+
+    n0 = B1.launches
+    img = G.load_example("torch_images").main(dev)
+    split["images"] = B1.launches - n0
+    k = len(img["sigma"])
+    s_ref = img["S_svd"][:k]
+    s_err = float(np.max(np.abs(img["sigma"] - s_ref) / s_ref))
+    f_err = abs(img["err_rbl"] - img["err_svd"]) / img["err_svd"]
+    if not (s_err < 1e-8 and f_err < 1e-6):
+        raise AssertionError(f"images rank {k}: σ off by {s_err:.3e} (gate 1e-8), "
+                             f"Frobenius error off by {f_err:.3e} (gate 1e-6)")
+    print(f"25 images 480×640 rank {k} f64: rbl_svd {img['t_rbl']:.3f} s (svds "
+          f"{img['t_svds']:.3f} s, full SVD {img['t_svd']:.3f} s on the host), σ "
+          f"max rel err {s_err:.3e}, Frobenius error {img['err_rbl']:.6e} "
+          f"({f_err:.3e} from the exact truncation's)  [{card}]")
+
+    gen_mod = G.load_example("torch_generalized")
+    n0 = B1.launches
+    gen = gen_mod.main(dev)
+    split["generalized"] = B1.launches - n0
+    n, k = 2000, len(gen["vibration"])
+    K, M = gen_mod.fem_bar(n)
+    w = scipy.linalg.eigh(K.toarray(), M.toarray(), eigvals_only=True)
+    near = w[np.argsort(np.abs(w - gen["sigma3"]), kind="stable")[:k]]
+    errs = {
+        "vibration": (np.max(np.abs(gen["vibration"] - w[:k]) / w[:k]), 1e-8),
+        "mode 3": (np.max(np.abs(gen["mode3"] - near) / near), 1e-8),
+        "buckling": (np.max(np.abs(gen["buckling"] - gen["buckling_dense"])
+                            / np.abs(gen["buckling_dense"])), 1e-6),
+    }
+    A3 = fem_elasticity_3d(8)
+    norm3 = float(spla.eigsh(A3, 1, which="LM", return_eigenvectors=False)[0])
+    errs["3-D residual / ‖A‖"] = (gen["elastic3d_residual"] / norm3, 1e-6)
+    bad = {name: e for name, (e, tol) in errs.items() if not e <= tol}
+    if bad:
+        raise AssertionError(f"generalized n={n} k={k}: past the gate: {bad}")
+    walls = ", ".join(f"{p} {t:.2f} s" for p, t in gen["walls"].items())
+    print(f"25 generalized n={n} k={k}: " + ", ".join(
+        f"{name} {e:.3e} (gate {tol:g})" for name, (e, tol) in errs.items())
+        + f"; walls {walls}  [{card}]")
+    print("25 B1 launches by part: " + ", ".join(f"{p} {c}" for p, c in split.items())
+          + f"  [{card}]")
+    return fem_ops, gen["amg3d"]
+
+
+def example_path_shapes(fem_ops: dict, amg3d, kernels: dict, card: str):
+    """After phase 25: both packed entry points against the plain version,
+    timed, on the operator of each fem42 sweep of the benchmark example at
+    that sweep's b (f32), and on every BSR level of the generalized
+    example's fem3d-8 grid AMG at the 3-D solve's b = 4 (f64; eigsh's
+    block for k = 4); rows in ``kernels[entry]["path_shapes"]``."""
+    from rbl_tpu_torch.ops.spmm import bsr
+
+    for b, op in fem_ops.items():
+        level_shape_rows(op, "fem42 (torch_benchmark)", kernels, card, phase=25, b=b)
+    routes = [type(lv.op).__name__ for lv in amg3d.levels]
+    print(f"25 fem3d-8 grid AMG (torch_generalized) levels: {routes}  [{card}]")
+    for i, lv in enumerate(amg3d.levels):
+        if isinstance(lv.op, bsr.BlockSparseOperator):
+            level_shape_rows(lv.op, f"fem3d-8 AMG level {i} (torch_generalized)",
+                             kernels, card, phase=25, b=4)
+
+
+def phase_reference_gates(card: str):
+    """Phase 26: the JAX package's exact-spectrum gates on the card, each
+    at its own tolerance (tests/_torch_gates.py holds the cases, which the
+    CPU tests run too): tests/test_spectra.py's (norm of the relative
+    errors < 1e-13, k = b = 5), the fuzz shapes at seeds 0 and 1, with
+    adaptive_reorth_max=4, the narrow window, the slow separation and the
+    negative dominant case, the host-offload shapes (pinned panels), the
+    sparse operators against eigsh, f32 exhaustion, the restarted shapes
+    (1e-10; the f32 head 1e-3), then which="LA"/"SA" and deflate=.  One
+    line a group: its cases, the worst error, the wall."""
+    G = torch_gates()
+    device = "cuda"
+
+    def worst(rel):
+        return float(np.max(rel))
+
+    def fuzz(name):
+        return worst(G.fuzz_case(name, device)[0])
+
+    def converged(rel, res, label):
+        if not res.converged:
+            raise AssertionError(f"26 {label}: not converged")
+        return worst(rel)
+
+    def sparse(case):
+        return converged(*G.sparse_vs_eigsh(case, device), f"sparse {case}")
+
+    def restarted(shape):
+        return converged(*G.restarted_case(shape, device), f"restarted {shape}")
+
+    def la():
+        rel, lm = G.which_la(device)
+        return max(worst(rel), lm)
+
+    def sa_laplacian():
+        rel, share = G.which_sa_laplacian(device)
+        if not share < 1.0:
+            raise AssertionError(f"26 SA Laplacian: residual {share:.3e} of its bound")
+        return worst(rel)
+
+    def deflate_next():
+        rel, overlap = G.deflate_next_after_known(device)
+        if not overlap < 1e-8:
+            raise AssertionError(f"26 deflate: |VᵀW| {overlap:.3e} ≥ 1e-8")
+        return worst(rel)
+
+    def raised(ok):
+        return 0.0 if ok else float("inf")
+
+    fz = list(G.FUZZ_CASES)
+    groups = [
+        ("spectra (test_spectra.py)", G.SPECTRA_TOL,
+         [(f"{kind} n={n}", lambda kind=kind, n=n: G.spectra_error(kind, n, device))
+          for kind, n in G.GATES]),
+        ("fuzz shapes, seeds 0 and 1", G.FUZZ_TOL,
+         [(c, lambda c=c: fuzz(c)) for c in fz if c.startswith("fuzz_")]),
+        ("fuzz, adaptive_reorth_max=4", G.FUZZ_TOL,
+         [(c, lambda c=c: fuzz(c)) for c in fz if c.startswith("adaptive_")
+          and c != "adaptive_slow_separation"]),
+        ("narrow window, slow separation, negative dominant", G.FUZZ_TOL,
+         [(c, lambda c=c: fuzz(c)) for c in ("grown_chunks_narrow_window",
+                                             "adaptive_slow_separation",
+                                             "negative_dominant")]),
+        ("host offload (basis_device_cap_cols=64)", G.FUZZ_TOL,
+         [(c, lambda c=c: fuzz(c)) for c in fz if c.startswith("host_offload_")]),
+        ("sparse operators vs eigsh", G.FUZZ_TOL,
+         [(c, lambda c=c: sparse(c)) for c in G.SPARSE_CASES]),
+        ("f32 exhaustion, top 10", G.F32_HEAD_TOL,
+         [("f32", lambda: G.f32_exhaustion_head_error(*G.f32_exhaustion(device)))]),
+        ("restarted shapes", G.FUZZ_TOL,
+         [(s, lambda s=s: restarted(s)) for s in sorted(G.RESTARTED_SHAPES)]),
+        ('which="LA"', G.LA_TOL, [("sign-mixed diagonal", la)]),
+        ('which="SA"', G.SA_TOL, [("24² Laplacian", sa_laplacian),
+                                  ("sparse vs eigsh", lambda: worst(G.which_sa_sparse(device)))]),
+        ("deflate=", G.DEFLATE_TOL,
+         [("next after known", deflate_next)]
+         + [(c, lambda c=c: worst(G.deflate_case(c, device))) for c in G.DEFLATE_CASES]),
+        ("validation raises ValueError", 1.0,
+         [("which=BE", lambda: raised(G.which_validation_raises(device))),
+          ("deflate shape", lambda: raised(G.deflate_shape_raises(device)))]),
+    ]
+    total = 0
+    for name, tol, cases in groups:
+        t0 = time.perf_counter()
+        errs = []
+        for label, fn in cases:
+            err = fn()
+            if not err < tol:
+                raise AssertionError(f"26 {name}, {label}: error {err:.3e} ≥ {tol:g}")
+            errs.append(err)
+        sync(device)
+        total += len(cases)
+        print(f"26 {name}: {len(cases)} cases, worst {max(errs):.3e} (gate {tol:g}), "
+              f"{time.perf_counter() - t0:.2f} s  [{card}]")
+    print(f"26: {total} cases at the reference's tolerances on {device}")
 
 
 def main() -> int:
@@ -2684,6 +2955,14 @@ def main() -> int:
     ranks24 = long_phase(24, (B1, B2), phase_mesh_scipy, st24, card)
     mesh_scipy_rows(st24["K_sh"], st24["amg_m"], ranks24, kernels, by_phase, card)
     del st24
+    torch.cuda.empty_cache()
+
+    # --- 25. the examples on the card; 26. the reference's gates -----------
+    fem_ops, amg3d = long_phase(25, (B1,), phase_examples, head, card)
+    example_path_shapes(fem_ops, amg3d, kernels, card)
+    del fem_ops, amg3d
+    torch.cuda.empty_cache()
+    long_phase(26, (), phase_reference_gates, card)
     print(f"chip_smoke total: {time.perf_counter() - t_start:.1f} s")
 
     record = {"kernels": [

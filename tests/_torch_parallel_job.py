@@ -122,6 +122,14 @@ def indefinite(n=400):
     return np.concatenate([-(n + 10.0 - np.arange(5.0)), np.arange(1.0, n - 4.0)])
 
 
+def gap_clusters(n=400):
+    """tests/test_fuzz_spectra.py's "gap_clusters" spectrum at its mesh
+    case's seed (3)."""
+    from _torch_gates import shape_diag
+
+    return shape_diag("gap_clusters", 3, n)
+
+
 def pencil():
     """tests/test_distributed.py's sharded pencil: A = diag(1..300) and a
     tridiagonal SPD M, n = 256, with scipy's generalized spectrum."""
@@ -510,6 +518,8 @@ def _solve_suite(mesh, out, inputs, outdir):
          bsr)
     diag = rtt.DiagonalOperator(torch.from_numpy(indefinite()))
     keep("indefinite", rtt.rbl(diag, 5, 5, cfg=cfg(block_size=5)), diag)
+    gap = rtt.DiagonalOperator(torch.from_numpy(gap_clusters()))
+    keep("gap_clusters", rtt.rbl(gap, 5, 5, cfg=cfg(block_size=5)), gap)
     lap24 = D.ShardedLaplacian2D(nx=24, ny=24, mesh=mesh, dtype=f64)
     keep("polished", rtt.rbl_polished(lap24, 4, cfg=cfg(block_size=2,
                                                          tol=1e-7), b=2),

@@ -3,8 +3,8 @@ package on ``make_row_mesh(2)``, with the JAX package's own gates:
 ``ShardedLaplacian2D`` 32×32 (k=4, b=4) within 1e-9 of the analytic
 spectrum, tests/fake_cluster_worker.py's 256-row COO matrix and
 tests/test_distributed.py's sharded-BSR case within 1e-9 of ``eigvalsh``,
-the fuzz spectrum "indefinite" through a replicated ``DiagonalOperator``
-at 1e-10, ``rbl_polished`` at tol 1e-7, ``rbl_restarted``,
+the fuzz spectra "indefinite" and "gap_clusters" through a replicated
+``DiagonalOperator`` at 1e-10, ``rbl_polished`` at tol 1e-7, ``rbl_restarted``,
 ``rbl_filtered`` and ``rbl_svd`` (sparse and dense, k = 4).
 
 Every solve's eigenvalues must be BITWISE equal across the ranks (the
@@ -28,7 +28,7 @@ from rbl_tpu.parallel.mesh import make_row_mesh
 import _torch_parallel_job as J
 
 SOLVES = ["lap", "coo", "coo_sa", "coo_deflated", "lap_host_tier", "bsr",
-          "indefinite", "polished", "restarted", "filtered", "pencil_la",
+          "indefinite", "gap_clusters", "polished", "restarted", "filtered", "pencil_la",
           "pencil_sigma", "pencil_lumped", "si_lap", "ck_sweep", "ck_restart",
           "ck_polish", "race"]
 
@@ -121,6 +121,18 @@ def test_replicated_diagonal_fuzz_indefinite(ranks, jmesh):
     d = J.indefinite()
     true_k = _top(d, 5)
     w = ranks[0]["indefinite__w"]
+    assert np.all(np.abs(w - true_k) / np.abs(true_k) < 1e-10)
+    jres = rt.rbl(rt.DiagonalOperator(d), 5, 5,
+                  cfg=rt.RBLConfig(block_size=5, mesh=jmesh))
+    assert np.all(np.abs(w - jres.eigenvalues) / np.abs(true_k) < 1e-10)
+
+
+def test_replicated_diagonal_fuzz_gap_clusters(ranks, jmesh):
+    """tests/test_fuzz_spectra.py's mesh case: two tight clusters a huge
+    gap apart (danger and selective modes) under the row mesh."""
+    d = J.gap_clusters()
+    true_k = _top(d, 5)
+    w = ranks[0]["gap_clusters__w"]
     assert np.all(np.abs(w - true_k) / np.abs(true_k) < 1e-10)
     jres = rt.rbl(rt.DiagonalOperator(d), 5, 5,
                   cfg=rt.RBLConfig(block_size=5, mesh=jmesh))

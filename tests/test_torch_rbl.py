@@ -18,37 +18,15 @@ import torch
 
 import rbl_tpu
 import rbl_tpu_torch as rtt
+from _torch_gates import GATES, SPECTRA_TOL, spectra_error
 from _torch_parity import CPU, random_sym
 from rbl_tpu_torch.ops.spmm import bsr as tbsr
 from rbl_tpu_torch.utils.fem import fem_elasticity_3d
 
 
-def _rel(diag, k, b=5):
-    res = rtt.rbl(rtt.DiagonalOperator(torch.from_numpy(diag)), k, b)
-    eig = np.sort(diag)[::-1][:k]
-    return (res.eigenvalues - eig) / eig
-
-
-def _step(n, k):
-    a = np.ones(n)
-    for i in range(1, 2 * k + 1):
-        a[2 * k - i] = i * n
-    return a
-
-
-GATES = (
-    [("slow", n) for n in range(100, 1001, 200)]
-    + [("moderate", n) for n in range(100, 1001, 200)]
-    + [("step", 100_000)]
-)
-
-
 @pytest.mark.parametrize("kind,n", GATES)
 def test_spectra_gates(kind, n):
-    a = {"slow": lambda: np.arange(1.0, n + 1.0),
-         "moderate": lambda: np.cumsum(np.arange(1.0, n + 1.0)),
-         "step": lambda: _step(n, 5)}[kind]()
-    assert np.linalg.norm(_rel(a, 5)) < 1e-13
+    assert spectra_error(kind, n, CPU) < SPECTRA_TOL
 
 
 def test_negative_eigenvalue_by_magnitude():
