@@ -192,6 +192,22 @@ a user calls, and checks the answers:
      which="LA" (1e-9), "SA" (1e-8), deflate= (1e-10) and the two
      ValueError checks; one line a group with its count, worst error and
      wall.
+ 27. the benchmark script and the fault retry: (a) bench_torch.main() at
+     full size on the card (bench.py's headline, best of three, its
+     f32-floor and at-1e-7 rows, and the reference-shaped loop of
+     rbl_tpu_torch/benchmarks/baseline_loop.py at b = 16, measured live
+     for vs_baseline), its JSON line printed before the last lines, held
+     to bench.py's 0.025 with no *_error key, the f32-floor cap and the
+     at-1e-7 convergence recorded, and the loop's eigenvalues within 0.025
+     of the analytic spectrum; (b) phase 25's fem42 operator (b = 8, f32,
+     tol 1e-3, BSR: B1) solved once as it is and twice with an INJECTED
+     fault (rbl's _rbl_impl wrapped to raise FloatingPointError, then
+     torch.OutOfMemoryError, on its first dispatch) under the default
+     fault_retries (1 on the card): two dispatches each, eigenvalues equal
+     to the unwrapped solve's (bitwise, or within 1e-6 relative), each
+     held to the ARPACK head; (c) a fault on every dispatch with
+     fault_retries=3 propagates after four dispatches, and a RuntimeError
+     that is not an OOM propagates after one.
 
 Phases 11-14, 17, 19, 20 and 22 launch B1/B2 through BlockSparseOperator.apply.
 Phase 14's fem42 polish applies A to k + buffer + random columns at once
@@ -204,7 +220,7 @@ path's own count; phases 11-13, 17, 20 and 22 must launch B1, phase 14
 both B1 (its f32 coarse sweep) and B2, phase 19 one of them, phase 23
 B2 (one rank) and B1 (each of two ranks), and phase 24 both B1 (the
 replicated levels) and B2 (fem47's K) on one rank and B1 on two
-(``launches_by_phase["24 (2 ranks)"]``), and phase 25 B1.  After
+(``launches_by_phase["24 (2 ranks)"]``), and phases 25 and 27 B1.  After
 phase 17 each BSR level's product is also timed through torch.sparse CSR
 (the level's nonzeros), and after phase 14 both entry points are timed at
 90 columns too.  The last two lines are the kernels' JSON
@@ -215,6 +231,7 @@ printing no result, when no CUDA device is available.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import subprocess
@@ -2499,6 +2516,111 @@ def phase_reference_gates(card: str):
     print(f"26: {total} cases at the reference's tolerances on {device}")
 
 
+@contextlib.contextmanager
+def injected_fault(exc, times=1):
+    """For the ``with`` body, rbl's ``_rbl_impl`` raises ``exc`` (an
+    injected fault) on its first ``times`` dispatches, or on every one
+    when ``times`` is None.  Yields the list of dispatches."""
+    import rbl_tpu_torch.solver.rbl as rblmod
+
+    real = rblmod._rbl_impl
+    dispatches = []
+
+    def flaky(*a, **kw):
+        dispatches.append(1)
+        if times is None or len(dispatches) <= times:
+            raise exc(f"injected fault (dispatch {len(dispatches)})")
+        return real(*a, **kw)
+
+    rblmod._rbl_impl = flaky
+    try:
+        yield dispatches
+    finally:
+        rblmod._rbl_impl = real
+
+
+def phase_bench_retry(fem_op, head: np.ndarray, card: str) -> None:
+    """Phase 27: (a) bench_torch.main() at full size, its JSON line and
+    gates; (b) the fault retry on fem42 (b = 8, f32, BSR) with injected
+    faults; (c) the faults that must propagate (module docstring)."""
+    import torch
+
+    import bench_torch
+    import rbl_tpu_torch as rt
+    from rbl_tpu_torch.utils.probe import resolve_fault_retries
+
+    # (a) the benchmark script, its three legs and the live baseline loop
+    t0 = time.perf_counter()
+    out, w_loop = bench_torch.main([])
+    errors = [k for k in out if k.endswith("_error")]
+    if errors:
+        raise AssertionError(f"27 bench: legs failed: "
+                             f"{ {k: out[k] for k in errors} }")
+    if not out["max_rel_err"] < 0.025:
+        raise AssertionError(f"27 bench: headline off by {out['max_rel_err']}")
+    for key in ("f32_floor_cap_hit", "ref_tol_converged", "vs_baseline",
+                "baseline_measured_s"):
+        if key not in out:
+            raise AssertionError(f"27 bench: no {key} in its line")
+    loop_err = laplacian_check(w_loop, bench_torch.NX)
+    if not loop_err < 0.025:
+        raise AssertionError(f"27 bench: the reference-shaped loop's eigenvalues "
+                             f"off by {loop_err:.3e} ≥ 0.025")
+    print(f"27 bench: headline {out['value']} s (b={bench_torch.bench_b()}), "
+          f"baseline loop {out['baseline_measured_s']} s (its eigenvalues "
+          f"{loop_err:.3e} off), vs_baseline {out['vs_baseline']}, f32 floor "
+          f"{out['f32_floor_s']} s (cap hit {out['f32_floor_cap_hit']}), at 1e-7 "
+          f"{out['at_ref_tol_s']} s (cold {out['at_ref_tol_cold_s']} s, converged "
+          f"{out['ref_tol_converged']}); {time.perf_counter() - t0:.1f} s  [{card}]")
+
+    # (b) injected faults on fem42 under the default retry count
+    retries = resolve_fault_retries(rt.RBLConfig(), fem_op.device)
+    if retries != 1:
+        raise AssertionError(f"27 retry: {retries} default retries on the card, not 1")
+    ref, ref_wall, _ = fem_solve(fem_op, 100, 8, head, label="27 fem42 unwrapped")
+    for exc in (FloatingPointError, torch.OutOfMemoryError):
+        with injected_fault(exc) as dispatches:
+            res, wall, err = fem_solve(fem_op, 100, 8, head,
+                                       label=f"27 fem42 {exc.__name__}")
+        if len(dispatches) != 2:
+            raise AssertionError(f"27 retry {exc.__name__}: {len(dispatches)} "
+                                 "dispatches, not 2")
+        bitwise = res.eigenvalues.tobytes() == ref.eigenvalues.tobytes()
+        rel = float(np.max(np.abs(res.eigenvalues - ref.eigenvalues)
+                           / np.abs(ref.eigenvalues)))
+        if not (bitwise or rel < 1e-6):
+            raise AssertionError(f"27 retry {exc.__name__}: eigenvalues "
+                                 f"{rel:.3e} from the unwrapped solve's")
+        print(f"27 retry, INJECTED {exc.__name__} on the first dispatch: 2 "
+              f"dispatches, wall {wall:.3f} s (unwrapped {ref_wall:.3f} s), "
+              f"eigenvalues {'bitwise equal to' if bitwise else f'{rel:.3e} from'} "
+              f"the unwrapped solve's, ARPACK head {err:.3e}, kryl_dim "
+              f"{res.kryl_dim}  [{card}]")
+
+    # (c) what must propagate
+    with injected_fault(FloatingPointError, times=None) as dispatches:
+        try:
+            solve(fem_op, 100, 8, "27 fem42 always failing", fault_retries=3)
+            raise AssertionError("27: a fault on every dispatch did not propagate")
+        except FloatingPointError:
+            pass
+    if len(dispatches) != 4:
+        raise AssertionError(f"27: {len(dispatches)} dispatches with "
+                             "fault_retries=3, not 4")
+    with injected_fault(RuntimeError) as dispatches:
+        try:
+            solve(fem_op, 100, 8, "27 fem42 RuntimeError")
+            raise AssertionError("27: an injected RuntimeError did not propagate")
+        except RuntimeError as e:
+            if "injected" not in str(e):
+                raise
+    if len(dispatches) != 1:
+        raise AssertionError(f"27: a RuntimeError was dispatched "
+                             f"{len(dispatches)} times, not once")
+    print(f"27 propagated: an INJECTED fault on every dispatch after 4 "
+          f"dispatches (fault_retries=3), an INJECTED RuntimeError after 1  [{card}]")
+
+
 def main() -> int:
     import torch
 
@@ -2960,9 +3082,14 @@ def main() -> int:
     # --- 25. the examples on the card; 26. the reference's gates -----------
     fem_ops, amg3d = long_phase(25, (B1,), phase_examples, head, card)
     example_path_shapes(fem_ops, amg3d, kernels, card)
+    fem8 = fem_ops[8]  # phase 27's fem42 operator
     del fem_ops, amg3d
     torch.cuda.empty_cache()
     long_phase(26, (), phase_reference_gates, card)
+
+    # --- 27. the benchmark script and the fault retry --------------------
+    long_phase(27, (B1,), phase_bench_retry, fem8, head, card)
+    del fem8
     print(f"chip_smoke total: {time.perf_counter() - t_start:.1f} s")
 
     record = {"kernels": [

@@ -2,8 +2,8 @@
 
 Every knob the reference hardcodes lives in one typed config object threaded
 through the solver.  Dtypes are ``torch.dtype`` values.  Knobs that exist
-only for the TPU (the f64 chunk-growth clamp, the post-OOM probe retries,
-the geometric basis growth) are not carried over.
+only for the TPU (the f64 chunk-growth clamp, the geometric basis growth)
+are not carried over.
 """
 
 from __future__ import annotations
@@ -117,6 +117,14 @@ class RBLConfig:
     fault_inject_abort_after_chunks:
         Raise ``SweepAborted`` after this many processed chunks:
         deterministic preemption for testing checkpoint and resume.
+    fault_retries:
+        Re-dispatches of a whole solve by ``rbl``, ``rbl_restarted`` and
+        ``chebyshev_refine`` (so ``rbl_polished``) when the non-finite-T
+        guard raises ``FloatingPointError``, CUDA runs out of memory, or
+        the result is non-finite, each after value-checked health probes
+        of the device (``utils/probe.py``).  None = auto: 1 on the card,
+        0 on the CPU, where a genuine numerical failure would only
+        repeat.  Under ``mesh`` only the guard's error is retried.
     restart_kryl_dim / restart_growth:
         The restarted variant's initial sweep length (restarted.jl:103)
         and its growth per restart (restarted.jl:142).  The reference's
@@ -151,6 +159,7 @@ class RBLConfig:
     sweep_checkpoint_path: Optional[str] = None
     sweep_checkpoint_every: int = 1
     fault_inject_abort_after_chunks: Optional[int] = None
+    fault_retries: Optional[int] = None
     restart_kryl_dim: int = 100
     restart_growth: int = 10
     restart_growth_policy: str = "stall"
@@ -170,6 +179,9 @@ class RBLConfig:
                      "adaptive_reorth_max", "sweep_checkpoint_every"):
             if getattr(self, name) < 1:
                 raise ValueError(f"{name} must be ≥ 1")
+        if self.fault_retries is not None and self.fault_retries < 0:
+            raise ValueError(
+                f"fault_retries must be ≥ 0, got {self.fault_retries}")
         if self.qr_method not in ("auto", "householder", "cholqr2", "cholqr3"):
             raise ValueError(f"unknown qr_method: {self.qr_method!r}")
         if self.eig_backend not in ("banded_host", "native", "device"):

@@ -181,8 +181,9 @@ def chebyshev_refine(
         cfg.compute_dtype.
     checkpoint_path: written atomically after every filter pass
         (``utils.checkpoint.save_polish_state``) and removed when the
-        solve converges.  It is never read here: to continue from a file,
-        pass ``warm_V=load_polish_state(path)["X"], extra_random=0``.
+        solve converges.  Only a fault retry (``cfg.fault_retries``)
+        reads it, and only when this call wrote it: to continue from a
+        file, pass ``warm_V=load_polish_state(path)["X"], extra_random=0``.
 
     Returns LanczosResult with eigenvalues/eigenvectors/residual_bounds
     for the k wanted pairs (Rayleigh–Ritz values against the true A);
@@ -193,17 +194,40 @@ def chebyshev_refine(
     whole block (rank 0 writes it).
     """
     cfg = cfg or RBLConfig()
-    mesh = cfg.mesh
     which = which.upper()
     if which not in ("LM", "LA", "SA"):
         raise ValueError(f"which={which!r} not in ('LM', 'LA', 'SA')")
     if filter_dtype not in ("auto", "compute"):
         raise ValueError(f"filter_dtype={filter_dtype!r} not in ('auto', 'compute')")
+    from ..utils.checkpoint import written_since_now
+    from ..utils.probe import dispatch
     from ..utils.profiling import null_timer
 
     timer = timer or null_timer()
+    base = on_mesh(as_operator(A, dtype=cfg.compute_dtype, device=cfg.device),
+                   cfg.mesh)
+    fresh = written_since_now(checkpoint_path, cfg.mesh)
+
+    def _dispatch():
+        wv, er = warm_V, extra_random
+        # a retry resumes from the pass-boundary checkpoint the failed
+        # attempt wrote; an earlier solve's file is never read
+        if fresh():
+            from ..utils.checkpoint import load_polish_state
+
+            wv, er = load_polish_state(checkpoint_path)["X"], 0
+        return _chebyshev_refine_impl(
+            base, wv, k, cfg, which, bounds, degree, max_passes, er,
+            target_gain, degree_cap, filter_dtype, timer, checkpoint_path)
+
+    return dispatch(_dispatch, cfg, base.device)
+
+
+def _chebyshev_refine_impl(base, warm_V, k, cfg, which, bounds, degree,
+                           max_passes, extra_random, target_gain, degree_cap,
+                           filter_dtype, timer, checkpoint_path):
+    mesh = cfg.mesh
     cdt = cfg.compute_dtype
-    base = on_mesh(as_operator(A, dtype=cdt, device=cfg.device), mesh)
     n = base.n
     rows = local_rows(n, mesh)  # this rank's rows of every n-sized block
     dev = base.device
@@ -473,8 +497,9 @@ def rbl_polished(
 
     ``checkpoint_path`` is honored on BOTH paths: the warm polish writes
     an atomic filter-pass-boundary checkpoint and removes it on success,
-    the cold fallback checkpoints at restart boundaries.  Neither reads an
-    existing file.
+    the cold fallback checkpoints at restart boundaries.  Neither reads a
+    file that existed before the call; a fault retry resumes from the one
+    the failed attempt wrote.
     """
     cfg = cfg or RBLConfig()
     if buffer is None:

@@ -96,8 +96,14 @@ def rbl(
             op = AffineOperator.shift(
                 op, 1.0 if which == "LA" else -1.0, shift
             )
-        res = _rbl_impl(op, k, cfg, compute_eigenvectors, timer, v0=v0,
-                        deflate=deflate)
+        # re-dispatch after a fired non-finite-T guard, a CUDA OOM or a
+        # non-finite result (cfg.fault_retries; utils/probe.py)
+        from ..utils.probe import dispatch
+
+        res = dispatch(
+            lambda: _rbl_impl(op, k, cfg, compute_eigenvectors, timer,
+                              v0=v0, deflate=deflate),
+            cfg, op.device)
     if which == "LA":
         res.eigenvalues = res.eigenvalues - shift
     elif which == "SA":

@@ -97,6 +97,32 @@ def file_exists(path: str, mesh=None) -> bool:
     return there if mesh is None else mesh.agree(there)
 
 
+def _file_stamp(path: str):
+    """The identity of the file at ``path`` (inode, mtime in ns, size), or
+    None when there is none."""
+    try:
+        st = os.stat(path)
+    except FileNotFoundError:
+        return None
+    return (st.st_ino, st.st_mtime_ns, st.st_size)
+
+
+def written_since_now(path, mesh=None):
+    """For a call that starts now: a function that tells whether ``path``
+    holds a checkpoint written since, and never a file that was there
+    before (an earlier solve's); agreed by every rank under a mesh.  A
+    None path never holds one."""
+    if path is None:
+        return lambda: False
+    stamp = _file_stamp(path)
+
+    def fresh() -> bool:
+        new = _file_stamp(path) not in (None, stamp)
+        return new if mesh is None else mesh.agree(new)
+
+    return fresh
+
+
 def save_restart_state(path: str, state, mesh=None, n: int | None = None
                        ) -> None:
     """The restart-boundary state; under ``mesh`` ``lock_buf`` and ``Qi``

@@ -26,9 +26,7 @@ from ..ops.spmm.operator import (
 )
 
 # RBLConfig fields of the JAX package that exist only for the TPU: dropped.
-_TPU_ONLY_FIELDS = frozenset({
-    "chunk_growth_cap_f64", "fault_retries", "min_basis_cols",
-})
+_TPU_ONLY_FIELDS = frozenset({"chunk_growth_cap_f64", "min_basis_cols"})
 # Fields that the JAX package validates but nothing of it reads (both
 # packages deflate the restarted sweep every step): dropped.
 _UNREAD_FIELDS = frozenset({"restart_reorth_cadence"})

@@ -527,6 +527,31 @@ def _solve_suite(mesh, out, inputs, outdir):
     keep("restarted", rtt.rbl_restarted(
         lap24, 4, cfg=cfg(tol=1e-9, restart_kryl_dim=60), b=2), lap24)
     keep("filtered", rtt.rbl_filtered(lap24, 4, 4, cfg=cfg(tol=1e-9)), lap24)
+    # the fault retry on the mesh: the guard's error on both ranks' first
+    # dispatch is retried by both together; an OOM propagates at once
+    import rbl_tpu_torch.solver.rbl as rblmod
+
+    real_impl = rblmod._rbl_impl
+    for case, exc in (("retry", FloatingPointError),
+                      ("retry_oom", torch.OutOfMemoryError)):
+        dispatches = []
+
+        def flaky(*a, **kw):
+            dispatches.append(1)
+            if len(dispatches) == 1:
+                raise exc("injected on every rank")
+            return real_impl(*a, **kw)
+
+        rblmod._rbl_impl = flaky
+        try:
+            keep(case, rtt.rbl(lap, 4, 4, cfg=cfg(
+                block_size=4, max_kryl_dim=256, fault_retries=1)), lap)
+            out[f"{case}__raised"] = np.asarray("nothing")
+        except exc as e:
+            out[f"{case}__raised"] = np.asarray(type(e).__name__)
+        finally:
+            rblmod._rbl_impl = real_impl
+        out[f"{case}__dispatches"] = np.asarray(len(dispatches))
     for case, B in (("svd_sparse", svd_sparse()), ("svd_dense", svd_dense())):
         res = rtt.rbl_svd(B, 4, b=4, cfg=cfg(block_size=4))
         out[f"{case}__s"] = np.asarray(res.s, dtype=np.float64)

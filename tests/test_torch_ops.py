@@ -303,6 +303,10 @@ def test_config_defaults_and_conversion():
     )))
     assert conv.basis_dtype == torch.bfloat16 and conv.compute_dtype == torch.float32
     assert conv.block_size == 16 and conv.resolved_qr_method() == "cholqr2"
+    # the fault retries cross; a default config keeps None (auto)
+    assert conv.fault_retries == 2
+    assert config_from_fields(dataclasses.asdict(jcfg)).fault_retries is None
+    assert tcfg.fault_retries is None
     # the checkpoint knobs cross; the JAX default rows_axis is dropped (a
     # RowMesh has one axis) and any other name raises; a JAX mesh cannot
     # cross (the port's mesh is a RowMesh over a torch.distributed group)

@@ -1,7 +1,8 @@
 """Row-sharded solves of the port on 2 gloo CPU ranks against the JAX
 package on ``make_row_mesh(2)``, with the JAX package's own gates:
 ``ShardedLaplacian2D`` 32×32 (k=4, b=4) within 1e-9 of the analytic
-spectrum, tests/fake_cluster_worker.py's 256-row COO matrix and
+spectrum (once more with a fault injected into both ranks' first dispatch
+and retried), tests/fake_cluster_worker.py's 256-row COO matrix and
 tests/test_distributed.py's sharded-BSR case within 1e-9 of ``eigvalsh``,
 the fuzz spectra "indefinite" and "gap_clusters" through a replicated
 ``DiagonalOperator`` at 1e-10, ``rbl_polished`` at tol 1e-7, ``rbl_restarted``,
@@ -30,7 +31,7 @@ import _torch_parallel_job as J
 SOLVES = ["lap", "coo", "coo_sa", "coo_deflated", "lap_host_tier", "bsr",
           "indefinite", "gap_clusters", "polished", "restarted", "filtered", "pencil_la",
           "pencil_sigma", "pencil_lumped", "si_lap", "ck_sweep", "ck_restart",
-          "ck_polish", "race"]
+          "ck_polish", "race", "retry"]
 
 
 @pytest.fixture(scope="module")
@@ -303,6 +304,21 @@ def test_poll_race_ranks_agree(ranks):
                                J.lap_exact(J.RACE_NX, J.RACE_NX, J.RACE_K),
                                rtol=1e-9)
     assert bool(ranks[0]["race__converged"])
+
+
+def test_fault_retry_on_the_mesh(ranks):
+    """FloatingPointError injected into both ranks' first dispatch of
+    _rbl_impl: both re-dispatch together and end where the solve without
+    a fault ends; an OOM on the mesh propagates at the first dispatch (one
+    rank's OOM would leave the others in a collective)."""
+    for rk in ranks:
+        assert int(rk["retry__dispatches"]) == 2
+        assert str(rk["retry__raised"]) == "nothing"
+        np.testing.assert_allclose(rk["retry__w"], rk["lap__w"], rtol=1e-12)
+        assert int(rk["retry_oom__dispatches"]) == 1
+        assert str(rk["retry_oom__raised"]) == "OutOfMemoryError"
+    np.testing.assert_allclose(ranks[0]["retry__w"], J.lap_exact(32, 32, 4),
+                               rtol=1e-9)
 
 
 def test_cluster_info_keys(ranks):
