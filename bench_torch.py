@@ -45,6 +45,8 @@ import time
 
 import numpy as np
 
+from rbl_tpu_torch.benchmarks.blocksize_bench import laplacian_spectrum
+
 # the geometry: a NX × NX grid, the K largest eigenpairs
 NX = 512
 K = 50
@@ -53,13 +55,6 @@ K = 50
 def bench_b() -> int:
     """RBL_BENCH_B as an int (default 16)."""
     return int(os.environ.get("RBL_BENCH_B", "16"))
-
-
-def laplacian_spectrum(nx: int, k: int) -> np.ndarray:
-    """The k largest eigenvalues of the nx × nx Dirichlet Laplacian,
-    descending."""
-    ev1 = 2 - 2 * np.cos(np.pi * np.arange(1, nx + 1) / (nx + 1))
-    return np.sort(np.add.outer(ev1, ev1).ravel())[::-1][:k]
 
 
 def _sync(device) -> None:

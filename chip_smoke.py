@@ -208,6 +208,29 @@ a user calls, and checks the answers:
      held to the ARPACK head; (c) a fault on every dispatch with
      fault_retries=3 propagates after four dispatches, and a RuntimeError
      that is not an OOM propagates after one.
+ 28. the eight benchmark scripts of rbl_tpu_torch/benchmarks/ through
+     their ``main``, on the card.  First, outside the launch counts, B1,
+     B2 and B4 against their plain versions (1e-5, f32) at the shapes the
+     scripts give them, timed beside torch.sparse CSR and the bound where
+     a script times them: B1 on the banded n = 262,144 matrix, fem3d-30
+     and blocky-64k at b = 8 and blocky-64k at b = 16 and 32 (X exactly
+     8 MiB), B2 on blocky-64k at b = 64 and 128, B4 on blocky-64k's panel
+     layout at b = 8; untimed, B1 over the tile sweep's eight plans of both
+     fixtures and on fem42 at b = 1, 2, 4.  Then the counted window, which
+     must launch B1, B2 and B4: spmm_bench at its defaults (every layout;
+     the share of each row's sparse_need bound); bsr_tile_sweep and
+     bsr_lane_bench at their defaults (the lane sweep's asserts
+     against scipy, the two panel gathers bitwise equal); solver_bench on
+     fem42 written as a temporary .mtx (``--matrix``, b 1,2,4,8, no
+     --arpack: ARPACK took 390 s on fem42 at k = 100), every b's head 90
+     printed against the ARPACK ground truth beside its wall and the
+     fastest b's held within 1e-2, then ``--laplacian 512 --blocks 8``
+     held within bench.py's 0.025 of the analytic spectrum;
+     blocksize_bench at its defaults (each b within 0.025); coarse_ab_bench
+     (each leg converged, 50 locked, within 1e-7 of the analytic
+     spectrum); aot_coldstart_bench in a fresh process (the same gate);
+     scaling_bench on 8 gloo ranks sharing the card (every mesh size's T
+     blocks bitwise equal across its ranks).  Every cut is printed.
 
 Phases 11-14, 17, 19, 20 and 22 launch B1/B2 through BlockSparseOperator.apply.
 Phase 14's fem42 polish applies A to k + buffer + random columns at once
@@ -220,7 +243,8 @@ path's own count; phases 11-13, 17, 20 and 22 must launch B1, phase 14
 both B1 (its f32 coarse sweep) and B2, phase 19 one of them, phase 23
 B2 (one rank) and B1 (each of two ranks), and phase 24 both B1 (the
 replicated levels) and B2 (fem47's K) on one rank and B1 on two
-(``launches_by_phase["24 (2 ranks)"]``), and phases 25 and 27 B1.  After
+(``launches_by_phase["24 (2 ranks)"]``), phases 25 and 27 B1, and
+phase 28 B1, B2 and B4.  After
 phase 17 each BSR level's product is also timed through torch.sparse CSR
 (the level's nonzeros), and after phase 14 both entry points are timed at
 90 columns too.  The last two lines are the kernels' JSON
@@ -1808,6 +1832,23 @@ def check_path_shapes(opK, amg, kernels: dict, card: str):
             level_shape_rows(op, label, kernels, card, phase=17)
 
 
+def dispatched_entry(op, b: int, label: str) -> str:
+    """The packed entry point a BSR operator's apply takes at b columns:
+    one apply, and the launch count that moved."""
+    import torch
+
+    from rbl_tpu_torch.ops.spmm import bsr
+
+    entries = ("bsr_spmm_packed_resident", "bsr_spmm_packed")
+    before = [getattr(bsr, e).launches for e in entries]
+    op.apply(torch.zeros((op._n, b), dtype=op.dtype, device="cuda"))
+    moved = [e for e, n0 in zip(entries, before) if getattr(bsr, e).launches > n0]
+    if len(moved) != 1:
+        raise AssertionError(f"{label} {op.dtype} b={b} launched "
+                             f"{moved or 'no packed entry'}")
+    return moved[0]
+
+
 def level_shape_rows(op, label: str, kernels: dict, card: str, phase: int,
                      b: int = 8):
     """Both packed entry points against the plain version on one BSR
@@ -1822,12 +1863,7 @@ def level_shape_rows(op, label: str, kernels: dict, card: str, phase: int,
 
     dtype = op.dtype
     entries = ("bsr_spmm_packed_resident", "bsr_spmm_packed")
-    before = [getattr(bsr, e).launches for e in entries]
-    op.apply(torch.zeros((op._n, b), dtype=dtype, device="cuda"))
-    moved = [e for e, n0 in zip(entries, before) if getattr(bsr, e).launches > n0]
-    if len(moved) != 1:
-        raise AssertionError(f"{label} {dtype} b={b} launched {moved or 'no packed entry'}")
-    used = moved[0]
+    used = dispatched_entry(op, b, label)
     # the library's time for the same product: the level's nonzeros as
     # torch.sparse CSR
     csr = csr_from_packed(op)
@@ -2621,6 +2657,212 @@ def phase_bench_retry(fem_op, head: np.ndarray, card: str) -> None:
           f"dispatches (fault_retries=3), an INJECTED RuntimeError after 1  [{card}]")
 
 
+
+def bench_fixtures():
+    """The scripts' matrices, drawn as the scripts draw them: spmm_bench's
+    banded n = 262,144 (after its two X blocks), fem3d-30, and blocky-64k
+    from a fresh generator (the tile sweep's and the lane sweep's)."""
+    from rbl_tpu_torch.benchmarks import spmm_bench as sb
+
+    n = 262_144
+    rng = np.random.default_rng(0)
+    rng.standard_normal((n, 8))
+    sb.stencil(rng, n, 8)
+    return {"banded n=262144": sb.banded_matrix(rng, n),
+            "fem3d-30": sb.fem3d(30),
+            "blocky-64k": sb.blocky_matrix(np.random.default_rng(0))}
+
+
+def bench_shapes(A42, kernels: dict, card: str):
+    """Phase 28 before its counted window: B1, B2 and B4 against their
+    plain versions at the shapes the scripts give them (module docstring),
+    the timed ones beside torch.sparse CSR and the bound, one row each in
+    ``kernels[entry]["path_shapes"]``."""
+    import torch
+
+    from rbl_tpu_torch.benchmarks.bsr_tile_sweep import CONFIGS
+    from rbl_tpu_torch.ops.spmm import bsr
+
+    f32 = torch.float32
+    mats = bench_fixtures()
+    widths = {"banded n=262144": (8,), "fem3d-30": (8,),
+              "blocky-64k": (8, 16, 32, 64, 128)}
+
+    def row(entry, label, abs_err, ms, plain_ms, lib_ms, moved, ops):
+        lim = bound(moved, ops)
+        kernels[entry].setdefault("path_shapes", []).append(dict(
+            phase=28, shape=label, max_abs_err=abs_err, ms=ms,
+            plain_ms=plain_ms, library_ms=lib_ms, **lim))
+        print(f"28 {entry} {label}: max abs err {abs_err:.2e}, kernel {ms:.4f} ms, "
+              f"plain {plain_ms:.4f} ms, torch.sparse CSR {lib_ms:.4f} ms, bound "
+              f"{lim['bound_ms']:.4f} ms ({lim['bound_ms'] / ms:.0%}, "
+              f"{lim['bound_by']})  [{card}]")
+
+    for name, M in mats.items():
+        op = bsr.BlockSparseOperator.from_scipy(M, dtype=f32, device="cuda")
+        csr = torch_csr(M, f32)
+        for b in widths[name]:
+            entry = dispatched_entry(op, b, name)
+            abs_err, rel, ms, plain_ms, moved, ops = compare_entry(
+                entry, op, b, seed=b, timing=True)
+            Xl = padded_x(op, b, seed=b)[: op._n]
+            lib_ms = time_ms(lambda: torch.sparse.mm(csr, Xl))
+            row(entry, f"{name} plan ({op.bm}, {op.unroll}) f32 b={b}", abs_err,
+                ms, plain_ms, lib_ms, moved, ops)
+        if name == "blocky-64k":
+            opp = bsr.BlockSparseOperator.from_scipy(
+                M, dtype=f32, bm=op.bm, unroll=op.unroll, panel=True,
+                device="cuda")
+            X = padded_x(opp, 8, seed=8)
+            call, plain = panel_calls(opp, X)
+            abs_err, _ = check("28 bsr_spmm_panel blocky-64k b=8", call, plain, f32)
+            Xl = X[: opp._n]
+            row("bsr_spmm_panel", f"{name} panels of plan ({opp.bm}, {opp.unroll}) "
+                "f32 b=8", abs_err, time_ms(call), time_ms(plain),
+                time_ms(lambda: torch.sparse.mm(csr, Xl)),
+                *sparse_need(opp.vals, opp._n, 8))
+            del opp
+        del op, csr
+        torch.cuda.empty_cache()
+    checked = 0
+    for name in ("fem3d-30", "blocky-64k"):
+        for bm, U in CONFIGS:
+            op = bsr.BlockSparseOperator.from_scipy(mats[name], dtype=f32, bm=bm,
+                                                    unroll=U, device="cuda")
+            compare_entry("bsr_spmm_packed_resident", op, 8, seed=8, timing=False)
+            checked += 1
+            del op
+            torch.cuda.empty_cache()
+    op42 = bsr.BlockSparseOperator.from_scipy(A42, dtype=f32, device="cuda")
+    for b in (1, 2, 4):
+        compare_entry(dispatched_entry(op42, b, "fem42"), op42, b, seed=b,
+                      timing=False)
+    print(f"28 B1 over the tile sweep's {checked} plans (b = 8) and on fem42's plan "
+          f"({op42.bm}, {op42.unroll}) at b = 1, 2, 4: within {TOL['float32']:g}")
+
+
+def write_mtx(A, path: str) -> float:
+    """``A`` as a symmetric Matrix Market file (as tools/bench_mtx.py
+    writes it); returns the seconds the write took."""
+    import scipy.io
+
+    t0 = time.perf_counter()
+    scipy.io.mmwrite(path, A, symmetry="symmetric")
+    return time.perf_counter() - t0
+
+
+# each row of spmm_bench: the rows of the matrix it times (its n), at the
+# script's defaults
+SPMM_ROWS_N = {"stencil-2d": 262_144, "dia": 262_144, "bsr-pallas": 262_144,
+               "ell-scan": 262_144, "bsr-fem3d": 86_490, "bsr128-fem3d": 86_490,
+               "dia-fem3d": 86_490, "auto-fem3d": 86_490, "bsr-blocky": 65_536,
+               "bsr128-blocky": 65_536, "hyb(skew)": 262_144,
+               "coo-segsum(skew)": 262_144}
+
+
+def spmm_layout_bounds(rows, b: int = 8) -> list:
+    """spmm_bench's rows with the share of the sparse_need bound of each
+    (every nonzero's f32 value and int32 index read once, X read and Y
+    written once, 2 operations a nonzero and column)."""
+    out = []
+    for name, dt, gnnz in rows:
+        n = SPMM_ROWS_N[name]
+        nnz = gnnz * 1e9 * dt
+        lim = bound(int(nnz * 8 + 2 * n * b * 4), int(2 * nnz * b))
+        out.append(dict(format=name, ms=dt * 1e3, gnnz_per_s=gnnz,
+                        bound_share=lim["bound_ms"] / (dt * 1e3), **lim))
+    return out
+
+
+def phase_benches(A42, head: np.ndarray, card: str) -> None:
+    """Phase 28's counted window: the eight scripts through their ``main``
+    on the card, each held to its gate (module docstring)."""
+    from rbl_tpu_torch.benchmarks import (
+        blocksize_bench,
+        bsr_lane_bench,
+        bsr_tile_sweep,
+        coarse_ab_bench,
+        scaling_bench,
+        solver_bench,
+        spmm_bench,
+    )
+
+    print("28 cuts: solver_bench on fem42 (.mtx) without --arpack, and on the "
+          "512² Laplacian at --blocks 8 only; every other script at its defaults")
+
+    def timed(label, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        print(f"28 {label}: {time.perf_counter() - t0:.1f} s  [{card}]", flush=True)
+        return out
+
+    rows, best = timed("spmm_bench", spmm_bench.main, [])
+    for r in spmm_layout_bounds(rows):
+        print(f"28 spmm layout {r['format']}: {r['ms']:.4f} ms, {r['gnnz_per_s']:.2f} "
+              f"Gnnz/s, {r['bound_share']:.1%} of its {r['bound_ms']:.4f} ms bound "
+              f"({r['bound_by']})  [{card}]")
+    print(f"28 spmm_bench best: {json.dumps(best)}")
+
+    sweep = timed("bsr_tile_sweep", bsr_tile_sweep.main, [])
+    if len(sweep) != 2 * len(bsr_tile_sweep.CONFIGS):
+        raise AssertionError(f"28 bsr_tile_sweep: {len(sweep)} plans ran, not "
+                             f"{2 * len(bsr_tile_sweep.CONFIGS)}")
+    timed("bsr_lane_bench", bsr_lane_bench.main, [])
+
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "fem42.mtx")
+        print(f"28 fem42 written as {os.path.basename(path)} in "
+              f"{write_mtx(A42, path):.1f} s")
+        results, line = timed("solver_bench fem42", solver_bench.main,
+                              ["--matrix", path, "--blocks", "1,2,4,8"])
+    for b, dt, res in results:
+        err = float(np.max(np.abs(res.eigenvalues[: len(head)] - head) / head))
+        print(f"28 solver_bench fem42 b={b}: wall {dt:.3f} s, max rel err (ARPACK "
+              f"head 90) {err:.3e}, kryl_dim {res.kryl_dim}, converged "
+              f"{res.converged}  [{card}]")
+        if b == line["block_size"] and not err < 1e-2:
+            raise AssertionError(f"28 solver_bench fem42: the reported b={b} is "
+                                 f"{err:.3e} off the ARPACK head")
+    results, _ = timed("solver_bench lap512", solver_bench.main,
+                       ["--laplacian", "512", "--blocks", "8"])
+    err = laplacian_check(results[0][2].eigenvalues, 512)
+    if not err < 0.025:
+        raise AssertionError(f"28 solver_bench lap512 b=8: {err:.3e} ≥ 0.025")
+    print(f"28 solver_bench lap512 b=8: wall {results[0][1]:.3f} s, max rel err "
+          f"{err:.3e}, kryl_dim {results[0][2].kryl_dim}  [{card}]")
+
+    for line in timed("blocksize_bench", blocksize_bench.main, []):
+        if not line["max_rel_err"] < 0.025:
+            raise AssertionError(f"28 {line['metric']}: {line['max_rel_err']:.3e} ≥ 0.025")
+
+    def polish_gate(line):
+        if not (line["converged"] and line["locked"] == 50
+                and line["max_rel_err"] < 1e-7):
+            raise AssertionError(f"28 {line['metric']} fails its gate: {line}")
+
+    for line in timed("coarse_ab_bench", coarse_ab_bench.main, []):
+        polish_gate(line)
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "rbl_tpu_torch.benchmarks.aot_coldstart_bench"],
+        capture_output=True, text=True, cwd=ROOT, timeout=300)
+    if proc.returncode != 0:
+        raise AssertionError(f"28 aot_coldstart_bench exited {proc.returncode}:\n"
+                             f"{proc.stderr[-3000:]}")
+    cold = json.loads(proc.stdout.strip().splitlines()[-1])
+    polish_gate(cold)
+    print(f"28 aot_coldstart_bench (a fresh process, {time.perf_counter() - t0:.1f} s "
+          f"with its start): {json.dumps(cold)}  [{card}]")
+
+    _, steps = timed("scaling_bench", scaling_bench.main, [])
+    if [r["ndev"] for r in steps] != [1, 2, 4, 8]:
+        raise AssertionError(f"28 scaling_bench ran {[r['ndev'] for r in steps]} ranks")
+    if not all(r["equal_across_ranks"] for r in steps):
+        raise AssertionError(f"28 scaling_bench: T blocks differ across ranks: {steps}")
+    print("28 scaling_bench: every mesh size's T blocks bitwise equal across its "
+          "ranks")
+
+
 def main() -> int:
     import torch
 
@@ -2726,11 +2968,11 @@ def main() -> int:
             raise AssertionError(f"main path never launched {f.__name__}")
 
     # --- 11.-14. the long-solve paths, each read on its own ------------------
-    def long_phase(number, must_launch, fn, *args):
+    def long_phase(number, must_launch, fn, *args, fns=packed):
         reset_launches(*every)
         t0 = time.perf_counter()
         out = fn(*args)
-        counts = {f.__name__: f.launches for f in packed}
+        counts = {f.__name__: f.launches for f in fns}
         for f in must_launch:
             if counts[f.__name__] < 1:
                 raise AssertionError(f"phase {number} never launched {f.__name__}")
@@ -3090,6 +3332,14 @@ def main() -> int:
     # --- 27. the benchmark script and the fault retry --------------------
     long_phase(27, (B1,), phase_bench_retry, fem8, head, card)
     del fem8
+
+    # --- 28. the benchmark scripts: their kernels at their shapes, then
+    # the scripts themselves in the counted window -------------------------
+    t28 = time.perf_counter()
+    bench_shapes(A, kernels, card)
+    print(f"phase 28 kernel checks: {time.perf_counter() - t28:.1f} s")
+    long_phase(28, (B1, B2, bsr.bsr_spmm_panel), phase_benches, A, head, card,
+               fns=every)
     print(f"chip_smoke total: {time.perf_counter() - t_start:.1f} s")
 
     record = {"kernels": [

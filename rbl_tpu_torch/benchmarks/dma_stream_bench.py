@@ -22,9 +22,10 @@ tensor launches its kernel or raises.
 
 Timing, as in the JAX harness: calls chained through a flowing seed
 (out / ‖out‖ fed back), the marginal cost between ``reps`` and ``4·reps``
-chained calls.  Each chained step also launches a norm and a divide, so
-beside it stands the kernel alone (CUDA events around calls launched
-back to back, ``kernel_ms``), from which the share of the bound is taken.
+chained calls (``marginal_seconds``, which the SpMM scripts share).
+Each chained step also launches a norm and a divide, so beside it stands
+the kernel alone (CUDA events around calls launched back to back,
+``kernel_ms``), from which the share of the bound is taken.
 
     python -m rbl_tpu_torch.benchmarks.dma_stream_bench [--mb 256] [--reps 8]
         [--configs 16:8,16:32] [--device cuda|cpu]
@@ -190,33 +191,54 @@ def error_ratio(out, ref, scale) -> float:
 
 # --- timing -------------------------------------------------------------------
 
-def time_chained(call, vals, seed0, reps: int, extra=(), *,
-                 clock=time.perf_counter):
-    """Marginal seconds per call: ``call(vals, y, *extra)`` chained through
-    the flowing seed y ← out / ‖out‖, so that no call repeats another's
-    inputs; the difference between ``4·reps`` and ``reps`` chained calls
-    (medians of 3) cancels the fixed cost of a run.  A marginal ≤ 0 is
-    measured once more, and then raises."""
+def sync(where) -> None:
+    """Wait for the work queued on the card of ``where`` (a tensor or a
+    device); nothing to wait for on the CPU."""
+    dev = where.device if isinstance(where, torch.Tensor) else torch.device(where)
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def marginal_seconds(step, y0, reps: int, *, clock=time.perf_counter,
+                     agree=bool) -> float:
+    """Marginal seconds per step of the chain y ← ``step(y)`` from ``y0``
+    salted anew each run, so that no run repeats another's inputs: the
+    difference between ``4·reps`` and ``reps`` chained steps (medians of
+    3, each run ending in a synchronize) cancels the fixed cost of a run.
+    A marginal ≤ 0 is measured once more, and then raises.  ``agree``
+    makes the retry's decision one that every rank of a mesh takes
+    together (``RowMesh.agree``); alone, ``bool``."""
     salt = itertools.count(1)
 
     def run(r: int) -> float:
-        y = seed0 + next(salt) * 1e-6
+        y = y0 + next(salt) * 1e-6
         t0 = clock()
         for _ in range(r):
-            out = call(vals, y, *extra)
-            n = torch.linalg.vector_norm(out)
-            y = out / torch.where(n > 0, n, torch.ones_like(n))
-        float(y[0, 0])  # waits for the chain
+            y = step(y)
+        sync(y)
         return clock() - t0
 
     run(1)  # warm-up (and the kernels' build)
     for _ in range(2):
         lo = float(np.median([run(reps) for _ in range(3)]))
         hi = float(np.median([run(4 * reps) for _ in range(3)]))
-        if hi > lo:
+        if agree(hi > lo):
             return (hi - lo) / (3 * reps)
-    raise RuntimeError(f"time_chained: marginal {hi - lo:.3e} s ≤ 0 twice "
-                       f"(reps={reps}); no time can be given")
+    raise RuntimeError(f"marginal {hi - lo:.3e} s ≤ 0 twice (reps={reps}); "
+                       "no time can be given")
+
+
+def time_chained(call, vals, seed0, reps: int, extra=(), *,
+                 clock=time.perf_counter):
+    """Marginal seconds per call (``marginal_seconds``): ``call(vals, y,
+    *extra)`` chained through the flowing seed y ← out / ‖out‖."""
+
+    def step(y):
+        out = call(vals, y, *extra)
+        n = torch.linalg.vector_norm(out)
+        return out / torch.where(n > 0, n, torch.ones_like(n))
+
+    return marginal_seconds(step, seed0, reps, clock=clock)
 
 
 def kernel_ms(fn, calls: int = 20, reps: int = 5) -> float:

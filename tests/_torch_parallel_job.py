@@ -94,6 +94,9 @@ OPS_CASES = {
     "rect_fwd": ("ShardedRectCooSpMM", "rect", {}),
     "rect_bwd": ("ShardedRectCooSpMM", "rect_T", {}),
 }
+# scaling_bench's rank body in the ops job: rows a rank (ny = 256 grid
+# columns, so nx = 2 a rank), block width, basis columns, timed reps
+SCALE_ROWS, SCALE_B, SCALE_COLS, SCALE_REPS = 512, 4, 16, 4
 # sharded operators built from the JAX operator's global arrays
 # (utils.convert.operator_from_arrays), compared like the cases above
 ARRAY_CASES = ("bsr_band", "coo_far", "ell_band", "rect_fwd")
@@ -382,6 +385,32 @@ def _kill(procs):
 # --- the ranks --------------------------------------------------------------
 
 
+def _scaling_legs(mesh, out):
+    """scaling_bench on this job's ranks: its sharded step in f64 on the
+    whole mesh (for the parity with the JAX step), then its rank body
+    (every leg at mesh sizes 1, 2 and 4) in f32; rank 0 keeps the rows."""
+    import argparse
+    import json
+
+    import torch
+
+    from rbl_tpu_torch.benchmarks import scaling_bench as SB
+
+    nx = (SCALE_ROWS // SB.NY) * mesh.size
+    arrays = SB.step_arrays(np.random.default_rng(0), nx * SB.NY, SCALE_B)
+    step = SB.sharded_step(mesh, nx, SB.NY, arrays, SCALE_COLS,
+                           dtype=torch.float64)
+    _, Qi, Qprev, Bi, TB = step()
+    for name, t in (("Qi", Qi), ("Qprev", Qprev), ("Bi", Bi), ("TB", TB)):
+        out[f"scaling_step__{name}"] = t.numpy()
+    args = argparse.Namespace(rows_per_dev=SCALE_ROWS, b=SCALE_B,
+                              basis_cols=SCALE_COLS, reps=SCALE_REPS)
+    got = SB.run_legs(args, torch.device("cpu"))
+    if got is not None:
+        out["scaling_rows"] = np.asarray(json.dumps(got[0]))
+        out["scaling_steps"] = np.asarray(json.dumps(got[1]))
+
+
 def _ops_suite(mesh, out, inputs, outdir):
     import torch
 
@@ -425,6 +454,7 @@ def _ops_suite(mesh, out, inputs, outdir):
         op = operator_from_arrays(kind, arrays, static, device="cpu",
                                   mesh=mesh)
         record(f"arrays_{case}", op, mats[mat].shape[1])
+    _scaling_legs(mesh, out)
 
 
 class _Future:

@@ -8,6 +8,11 @@ intra-op threads, because tier-1 runs the test files in parallel workers.
 
 from __future__ import annotations
 
+import ast
+import importlib
+import os
+import sys
+
 import numpy as np
 import scipy.sparse as sp
 import torch
@@ -94,3 +99,52 @@ def rel_err(got, ref):
     got = np.asarray(got, dtype=np.float64)
     ref = np.asarray(ref, dtype=np.float64)
     return float(np.abs(got - ref).max() / max(np.abs(ref).max(), 1e-300))
+
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def jax_bench(name: str):
+    """The JAX package's ``benchmarks/<name>.py``, imported as
+    ``benchmarks.<name>`` (the name its sibling scripts import it by)."""
+    if ROOT not in sys.path:
+        sys.path.insert(0, ROOT)
+    return importlib.import_module(f"benchmarks.{name}")
+
+
+def json_key_sets(path: str) -> set:
+    """The key sets of the JSON objects a script prints, read from its
+    source: each dict literal with a "metric" key, with the keys a function
+    later assigns into the name it is bound to (``row["k"] = ...``)."""
+    tree = ast.parse(open(path).read())
+    found = set()
+    for fn in ast.walk(tree):
+        if not isinstance(fn, ast.FunctionDef):
+            continue
+        for node in ast.walk(fn):
+            if not isinstance(node, ast.Dict):
+                continue
+            keys = {k.value for k in node.keys if isinstance(k, ast.Constant)}
+            if "metric" not in keys:
+                continue
+            for a in ast.walk(fn):
+                if (isinstance(a, ast.Assign) and a.value is node
+                        and isinstance(a.targets[0], ast.Name)):
+                    name = a.targets[0].id
+                    for t in ast.walk(fn):
+                        if (isinstance(t, ast.Subscript)
+                                and isinstance(t.ctx, ast.Store)
+                                and getattr(t.value, "id", None) == name
+                                and isinstance(t.slice, ast.Constant)):
+                            keys.add(t.slice.value)
+            found.add(frozenset(keys))
+    return found
+
+
+def csr_equal(A, B) -> bool:
+    """Two scipy sparse matrices with the same CSR arrays, bit for bit."""
+    A, B = sp.csr_matrix(A), sp.csr_matrix(B)
+    return (A.shape == B.shape and A.dtype == B.dtype
+            and np.array_equal(A.indptr, B.indptr)
+            and np.array_equal(A.indices, B.indices)
+            and np.array_equal(A.data, B.data))

@@ -7,7 +7,9 @@ Per case: the output within 1e-12 relative (f64), the host plans (``caps``,
 row remaps) EQUAL as arrays, ``diagonal()`` within 1e-14 and the
 ``comm_*_per_apply`` counts equal.  The ranks run as one spawned job
 (tests/_torch_parallel_job.py) with a timeout; each rank's results come
-back as an .npz.
+back as an .npz.  The same job runs the sharded step of
+rbl_tpu_torch/benchmarks/scaling_bench.py (against the JAX script's step
+on ``make_row_mesh(4)``) and that script's rank body at mesh sizes 1, 2, 4.
 """
 
 import numpy as np
@@ -157,3 +159,77 @@ def test_ghost_paths_move_boundary_blocks_only(ranks):
     assert int(ranks[0]["coo_band__comm"]) <= 2 * 20
     assert int(ranks[0]["ell_dense__caps"]) == -1
     assert int(ranks[0]["ell_dense__comm"]) == J.OPS_N - ml
+
+
+# --- scaling_bench's sharded step and rank body ------------------------------
+
+
+def test_scaling_step_matches_jax(eight_devices, ranks):
+    """The fused 2-iteration _sweep_chunk of ShardedLaplacian2D that
+    benchmarks/scaling_bench.py times, in f64 on the same seeded inputs:
+    the rank slabs of Qi/Qprev and the replicated Bi and T blocks within
+    1e-12 relative of the JAX step on make_row_mesh(4), and the T blocks
+    bitwise equal on every rank."""
+    import jax
+
+    from rbl_tpu.parallel.mesh import row_sharding
+    from rbl_tpu.solver.lanczos import _sweep_chunk
+    from rbl_tpu_torch.benchmarks import scaling_bench as SB
+
+    mesh = make_row_mesh(NDEV)
+    nx = (J.SCALE_ROWS // SB.NY) * NDEV
+    n = nx * SB.NY
+    Qi, Qprev, Bi = SB.step_arrays(np.random.default_rng(0), n, J.SCALE_B)
+    op = JD.ShardedLaplacian2D(nx=nx, ny=SB.NY, mesh=mesh, _dtype=jnp.float64)
+    sh = row_sharding(mesh)
+    step = jax.jit(lambda basis, Qi, Qprev, Bi: _sweep_chunk(
+        op, basis, Qi, Qprev, Bi, jnp.int32(0), None,
+        cdt=jnp.dtype(jnp.float64), qr_method="cholqr2", nsteps=2,
+        reorth_pattern=(True, False), loc_passes=2))
+    _, jQi, jQprev, jBi, jTB = step(
+        jax.device_put(jnp.zeros((n, J.SCALE_COLS)), sh),
+        jax.device_put(jnp.asarray(Qi), sh), jax.device_put(jnp.asarray(Qprev), sh),
+        jnp.asarray(Bi))
+    for name, ref in (("Qi", jQi), ("Qprev", jQprev)):
+        got = np.concatenate([rk[f"scaling_step__{name}"] for rk in ranks])
+        assert _rel(got, np.asarray(ref)) < 1e-12, name
+    for name, ref in (("Bi", jBi), ("TB", jTB)):
+        for rk in ranks:
+            assert _rel(rk[f"scaling_step__{name}"], np.asarray(ref)) < 1e-12, name
+    for rk in ranks[1:]:
+        assert rk["scaling_step__TB"].tobytes() == ranks[0]["scaling_step__TB"].tobytes()
+
+
+def test_scaling_rank_body(eight_devices, ranks):
+    """scaling_bench's legs on the job's ranks (mesh sizes 1, 2, 4): every
+    size's T blocks bitwise equal across its ranks, the JSON lines with the
+    JAX script's keys, and the comm-growth counts at 2 and 4 ranks equal to
+    the JAX package's operators' on the same matrix (the COO plan's ghost
+    rows; the BSR plan's Σ caps × ndev blocks and their KB)."""
+    import json
+
+    from _torch_parity import ROOT, json_key_sets
+    from rbl_tpu_torch.benchmarks import scaling_bench as SB
+
+    assert "scaling_rows" not in ranks[1]
+    rows = json.loads(str(ranks[0]["scaling_rows"]))
+    steps = json.loads(str(ranks[0]["scaling_steps"]))
+    assert [s["ndev"] for s in steps] == [1, 2, 4]
+    assert all(s["equal_across_ranks"] for s in steps)
+    want = {k - {"bsr_error"} if "bsr_error" in k else k
+            for k in json_key_sets(f"{ROOT}/benchmarks/scaling_bench.py")}
+    assert {frozenset(r) for r in rows} == want
+    growth = {r["metric"]: r for r in rows if r["metric"].startswith("comm_growth")}
+    assert sorted(growth) == ["comm_growth_2dev", "comm_growth_4dev"]
+    n_fix = J.SCALE_ROWS * NDEV
+    A_fix = SB.banded(np.random.default_rng(1), n_fix, 256)
+    for ndev in (2, 4):
+        m = make_row_mesh(ndev)
+        coo = JD.ShardedCooSpMM.from_scipy(A_fix, m, dtype=np.float32,
+                                           exchange="ghost")
+        bsr = JD.ShardedBlockSparseOperator.from_scipy(A_fix, m, dtype=jnp.float32)
+        gblocks = int(sum(bsr.caps)) * ndev
+        row = growth[f"comm_growth_{ndev}dev"]
+        assert row["coo_ghost_rows"] == int(coo.comm_rows_per_apply())
+        assert row["bsr_ghost_blocks"] == gblocks
+        assert row["bsr_ghost_kb"] == round(gblocks * bsr.bk * J.SCALE_B * 4 / 1024, 1)
