@@ -48,6 +48,7 @@ import numpy as np
 import torch
 
 from ..parallel.mesh import col_sumsq
+from ..utils.profiling import timed
 from .spmm.operator import LinearOperator
 
 
@@ -172,13 +173,15 @@ class ChebyshevProductFilter(LinearOperator):
     built exclusively from the `(A·Y − r·Y)` pattern.  The per-step
     normalization removes the scaled form's range hazard (p-values
     e^{−d·y} underflow a narrow exponent range), so no underflow degree
-    cap is needed."""
+    cap is needed.  With a ``timer`` each ``base.apply`` is its section
+    "spmm"."""
 
     base: LinearOperator
     a: torch.Tensor      # 0-d: damped-interval lower edge (≤ λ_min!)
     b: torch.Tensor      # 0-d: damped-interval upper edge (the cutoff)
     degree: int = 24
     mesh: Any = None     # RowMesh: X is the rank's rows, norms reduced
+    timer: Any = None    # utils.profiling.Timer
 
     @classmethod
     def make(cls, base: LinearOperator, a: float, b: float,
@@ -211,9 +214,10 @@ class ChebyshevProductFilter(LinearOperator):
         # torch.tensor copies: the cached array stays read-only
         roots = c + e * torch.tensor(self._unit_roots(), dtype=X.dtype,
                                      device=X.device)
+        apply = timed(self.base.apply, self.timer, "spmm")
         Y = X
         for i in range(self.degree):
-            Y = self.base.apply(Y) - roots[i] * Y
+            Y = apply(Y) - roots[i] * Y
             nrm = torch.sqrt(col_sumsq(Y, self.mesh))
             Y = Y / torch.where(nrm > 0, nrm, torch.ones_like(nrm))
         return Y

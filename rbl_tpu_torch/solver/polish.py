@@ -49,14 +49,19 @@ from ..ops.qr import block_qr
 from ..ops.spmm.operator import AffineOperator, as_operator, cast_operator, dot
 from ..parallel.dist_spmm import on_mesh, op_mesh
 from ..parallel.mesh import col_sumsq, local_rows, randn_rows
+from ..utils.profiling import null_timer
 from .lanczos import LanczosResult
 from .rbl import rbl
 
 
-def _rr_gram(op, X, mesh=None):
-    """A·X and the (m, m) Rayleigh–Ritz matrix XᵀAX."""
-    AX = op.apply(X)
-    return gram(X, AX, mesh=mesh), AX
+def _rr_gram(op, X, mesh=None, timer=None):
+    """A·X and the (m, m) Rayleigh–Ritz matrix XᵀAX; ``timer`` times the
+    apply as "spmm" and the Gram as "project"."""
+    tm = timer or null_timer()
+    with tm.section("spmm"):
+        AX = op.apply(X)
+    with tm.section("project"):
+        return gram(X, AX, mesh=mesh), AX
 
 
 def _rotate_dev(X, Y):
@@ -75,7 +80,7 @@ def _rr_rotate(X, AX, Y, theta, mesh=None):
     return Xr, torch.sqrt(col_sumsq(R, mesh))
 
 
-def _filter_only(op, X, a, b, degree, fdt=None):
+def _filter_only(op, X, a, b, degree, fdt=None, timer=None):
     """One Chebyshev filter pass (the PRODUCT form, ChebyshevProductFilter:
     built from the `(A·Y − r·Y)` pattern alone, with per-step column
     normalization, so no intermediate leaves O(1) at any degree), columns
@@ -86,24 +91,25 @@ def _filter_only(op, X, a, b, degree, fdt=None):
     enclosing loop: the post-filter QR and the Rayleigh–Ritz always run in
     X's own (compute) dtype, and that loop switches fdt to the compute
     dtype once the residuals approach the f32 floor.  Under a row mesh
-    (the operator's) X is the rank's rows and the norms are reduced."""
+    (the operator's) X is the rank's rows and the norms are reduced.
+    ``timer`` times the chain's applies as "spmm"."""
     mesh = op_mesh(op)
     xdt = X.dtype
     if fdt is not None and fdt != xdt:
         fop = ChebyshevProductFilter(
             base=cast_operator(op, fdt), a=a.to(fdt), b=b.to(fdt),
-            degree=degree, mesh=mesh,
+            degree=degree, mesh=mesh, timer=timer,
         )
         Y = fop.apply(X.to(fdt)).to(xdt)
     else:
         fop = ChebyshevProductFilter(base=op, a=a, b=b, degree=degree,
-                                     mesh=mesh)
+                                     mesh=mesh, timer=timer)
         Y = fop.apply(X)
     nrm = torch.sqrt(col_sumsq(Y, mesh))
     return Y / torch.where(nrm > 0, nrm, torch.ones_like(nrm))
 
 
-def _filter_qr(op, X, frozen, a, b, degree, qr_method, fdt=None):
+def _filter_qr(op, X, frozen, a, b, degree, qr_method, fdt=None, timer=None):
     """One Chebyshev filter pass + re-orthonormalization.
 
     Frozen (already-converged) columns pass through UNFILTERED, and are
@@ -114,12 +120,14 @@ def _filter_qr(op, X, frozen, a, b, degree, qr_method, fdt=None):
     the permutation, frozen columns emerge stable and the unfrozen ones are
     deflated against them inside the same QR (run in the COMPUTE dtype,
     which also re-orthogonalizes low-precision filter output against the
-    frozen set in full precision)."""
-    Y = _filter_only(op, X, a, b, degree, fdt=fdt)
+    frozen set in full precision).  ``timer`` times the applies as "spmm"
+    and the QR as "qr"."""
+    Y = _filter_only(op, X, a, b, degree, fdt=fdt, timer=timer)
     Y = torch.where(frozen[None, :], X, Y)
     order = torch.argsort((~frozen).to(torch.int8), stable=True)
     inv = torch.argsort(order)
-    Q, _ = block_qr(Y[:, order], method=qr_method, mesh=op_mesh(op), n=op.n)
+    with (timer or null_timer()).section("qr"):
+        Q, _ = block_qr(Y[:, order], method=qr_method, mesh=op_mesh(op), n=op.n)
     return Q[:, inv]
 
 
@@ -201,7 +209,6 @@ def chebyshev_refine(
         raise ValueError(f"filter_dtype={filter_dtype!r} not in ('auto', 'compute')")
     from ..utils.checkpoint import written_since_now
     from ..utils.probe import dispatch
-    from ..utils.profiling import null_timer
 
     timer = timer or null_timer()
     base = on_mesh(as_operator(A, dtype=cfg.compute_dtype, device=cfg.device),
@@ -244,35 +251,37 @@ def _chebyshev_refine_impl(base, warm_V, k, cfg, which, bounds, degree,
         )
 
     with matmul_precision(cfg.matmul_precision):
-        r = cfg.block_size if extra_random is None else int(extra_random)
-        W = torch.as_tensor(warm_V).to(device=dev, dtype=cdt)
-        if mesh is not None and W.ndim == 2 and W.shape[0] == n != rows:
-            W = W[slice(*mesh.row_range(n))]
-        if W.ndim != 2 or W.shape[0] != rows or W.shape[1] < k:
-            raise ValueError(
-                f"warm_V must be (n={rows}, m>={k}), got {tuple(W.shape)}"
-            )
-        if r:
-            gen = torch.Generator(device=dev)
-            gen.manual_seed(cfg.seed * 1_000_003 + 104729)
-            W = torch.cat([W, randn_rows(n, r, gen, cdt, dev, mesh)], dim=1)
-        m = int(W.shape[1])
-        # entry orthonormalization: column-normalize first so duplicate /
-        # garbage warm columns degrade into noise directions instead of
-        # sinking the Cholesky (same rationale as _filter_qr)
-        nrm = torch.sqrt(col_sumsq(W, mesh))
-        W = W / torch.where(nrm > 0, nrm, torch.ones_like(nrm))
-        qr_method = ("cholqr2" if cdt.itemsize >= 8
-                     else cfg.resolved_qr_method())
-        X, _ = block_qr(W, method=qr_method, mesh=mesh, n=n)
+        # the warm block with its random pad, orthonormalized; ‖A‖ bound
+        with timer.section("solve_setup"):
+            r = cfg.block_size if extra_random is None else int(extra_random)
+            W = torch.as_tensor(warm_V).to(device=dev, dtype=cdt)
+            if mesh is not None and W.ndim == 2 and W.shape[0] == n != rows:
+                W = W[slice(*mesh.row_range(n))]
+            if W.ndim != 2 or W.shape[0] != rows or W.shape[1] < k:
+                raise ValueError(
+                    f"warm_V must be (n={rows}, m>={k}), got {tuple(W.shape)}"
+                )
+            if r:
+                gen = torch.Generator(device=dev)
+                gen.manual_seed(cfg.seed * 1_000_003 + 104729)
+                W = torch.cat([W, randn_rows(n, r, gen, cdt, dev, mesh)], dim=1)
+            m = int(W.shape[1])
+            # entry orthonormalization: column-normalize first so duplicate /
+            # garbage warm columns degrade into noise directions instead of
+            # sinking the Cholesky (same rationale as _filter_qr)
+            nrm = torch.sqrt(col_sumsq(W, mesh))
+            W = W / torch.where(nrm > 0, nrm, torch.ones_like(nrm))
+            qr_method = ("cholqr2" if cdt.itemsize >= 8
+                         else cfg.resolved_qr_method())
+            X, _ = block_qr(W, method=qr_method, mesh=mesh, n=n)
 
-        hi = hi_u
-        if hi is None:
-            from ..ops.eig import spectral_norm_bound
+            hi = hi_u
+            if hi is None:
+                from ..ops.eig import spectral_norm_bound
 
-            gen = torch.Generator(device=dev)
-            gen.manual_seed(cfg.seed + 1)
-            hi = float(spectral_norm_bound(op, gen, mesh=mesh))
+                gen = torch.Generator(device=dev)
+                gen.manual_seed(cfg.seed + 1)
+                hi = float(spectral_norm_bound(op, gen, mesh=mesh))
 
         import scipy.linalg
 
@@ -286,7 +295,7 @@ def _chebyshev_refine_impl(base, warm_V, k, cfg, which, bounds, degree,
         npass = 0
         for p in range(max_passes):
             with timer.section("polish_rr"):
-                H, AX = _rr_gram(op, X, mesh)
+                H, AX = _rr_gram(op, X, mesh, timer)
                 Hh = H.cpu().numpy().astype(np.float64)
             if not np.all(np.isfinite(Hh)):
                 raise FloatingPointError(
@@ -294,7 +303,8 @@ def _chebyshev_refine_impl(base, warm_V, k, cfg, which, bounds, degree,
                     f"(pass {p}) — operator output is unstable"
                 )
             Hh = (Hh + Hh.T) / 2.0
-            th_a, Y_a = scipy.linalg.eigh(Hh)
+            with timer.section("polish_eig"):  # on the host
+                th_a, Y_a = scipy.linalg.eigh(Hh)
             order = (
                 np.argsort(-np.abs(th_a), kind="stable") if which == "LM"
                 else np.argsort(-th_a, kind="stable")
@@ -432,7 +442,7 @@ def _chebyshev_refine_impl(base, warm_V, k, cfg, which, bounds, degree,
                     op, X, torch.as_tensor(frozen, device=dev),
                     torch.as_tensor(a_, dtype=cdt, device=dev),
                     torch.as_tensor(b_, dtype=cdt, device=dev),
-                    deg, qr_method, fdt=fdt,
+                    deg, qr_method, fdt=fdt, timer=timer,
                 )
             if checkpoint_path is not None:
                 from ..utils.checkpoint import save_polish_state
@@ -523,9 +533,10 @@ def rbl_polished(
                  which=which, timer=timer)
     warm_V = coarse.eigenvectors
     if warm_V is not None:
-        finite = bool(torch.isfinite(warm_V).all())
-        if cfg.mesh is not None:
-            finite = cfg.mesh.agree(finite)  # one rank's rows decide for all
+        with (timer or null_timer()).section("solve_setup"):
+            finite = bool(torch.isfinite(warm_V).all())
+            if cfg.mesh is not None:
+                finite = cfg.mesh.agree(finite)  # one rank's rows decide for all
         if not finite:
             warm_V = None  # garbage from the coarse stage: run the polish cold
 

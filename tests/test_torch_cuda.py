@@ -429,3 +429,37 @@ def test_eigsh_and_svds_on_the_card_return_numpy():
     U, s, Vh = rtt.svds(B, k=4)
     assert isinstance(U, np.ndarray) and np.all(np.diff(s) >= 0)
     assert rel_err(s, np.sort(np.linalg.svd(B, compute_uv=False))[-4:]) < 1e-9
+
+
+@pytest.mark.gpu
+def test_timer_stamps_sit_on_the_profilers_clock_on_the_card():
+    """Under a profile that traces the card, the Timer's stamps and each
+    section's own ``record_function`` event agree within 50 µs, start and
+    end: at the median and for 19 stamps in 20 (the profiler's own
+    bookkeeping inside a range can hold one up for longer; the first
+    section, which pays the range's first-call cost, is left out).  The
+    GEMM launched inside a section runs on the card."""
+    _needs_card()
+    from torch.profiler import ProfilerActivity, profile
+
+    from rbl_tpu_torch.utils.profiling import Timer
+
+    x = torch.ones(1024, 1024, device="cuda")
+    timer = Timer()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for i in range(201):
+            with timer.section(f"probe_{i}"):
+                x @ x
+        torch.cuda.synchronize()
+    events = prof.profiler.kineto_results.events()
+    ranges = {e.name(): e for e in events
+              if e.name().startswith("probe_") and "CPU" in str(e.device_type())}
+    gaps = []
+    for sp in timer.spans[1:]:
+        e = ranges[sp.name]
+        gaps += [abs(e.start_ns() - sp.start_ns),
+                 abs(e.start_ns() + e.duration_ns() - sp.end_ns)]
+    gaps.sort()
+    assert gaps[len(gaps) // 2] < 50_000 and gaps[int(0.95 * len(gaps))] < 50_000, gaps[-10:]
+    assert any("CUDA" in str(e.device_type()) and "gemm" in e.name().lower()
+               for e in events)

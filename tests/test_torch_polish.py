@@ -163,8 +163,8 @@ def test_filter_dtype_modes(filter_dtype, monkeypatch):
     seen = []
     real = tpolish._filter_only
     monkeypatch.setattr(tpolish, "_filter_only",
-                        lambda op, X, a, b, degree, fdt=None: seen.append(fdt)
-                        or real(op, X, a, b, degree, fdt=fdt))
+                        lambda op, X, a, b, degree, fdt=None, **kw: seen.append(fdt)
+                        or real(op, X, a, b, degree, fdt=fdt, **kw))
     lam = _lap_spectrum()
     k = 6
     res = rtt.chebyshev_refine(_lap(), _warm_block(k, 6, 1e-2), k,
