@@ -51,7 +51,11 @@ class RBLConfig:
     eig_backend:
         How each poll factorizes the projected T.  "banded_host": LAPACK
         on the host through scipy, the reference's dsbev path
-        (common.jl:28-48), forming only the top-k pairs.  "native": the
+        (common.jl:28-48), forming only the top-k pairs; but a sweep that
+        ends at its Krylov cap on a CUDA device with no mesh factorizes
+        its last T on the card, as "device" does, once T is
+        ``solver.lanczos.CARD_EIG_MIN_COLS`` columns or wider (nothing
+        overlaps that factorization).  "native": the
         in-repo C++ tred2/tql2 solver (``rbl_tpu_torch.native``, built
         with g++ at first use; a failed build raises).  "device":
         ``torch.linalg.eigh`` of the densified T in f64 on the solve's

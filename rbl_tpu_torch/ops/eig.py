@@ -7,7 +7,8 @@ functions are the JAX package's numpy/scipy code.  Three backends
 factorize T (``RBLConfig.eig_backend``): "banded_host", scipy's LAPACK;
 "native", the in-repo C++ tred2/tql2 solver (``rbl_tpu_torch.native``);
 "device", ``torch.linalg.eigh`` of the densified T in f64 on the solve's
-device.
+device (``eigh_banded_device``), which the sweep driver also picks for
+a capped sweep's last factorization of a wide T on a CUDA card.
 
 Ritz selection keeps the k largest by |λ| (reference sort_eig_abs,
 common.jl:50-54); convergence is the all-or-nothing residual bound
@@ -16,6 +17,8 @@ common.jl:56-65).
 """
 
 from __future__ import annotations
+
+import functools
 
 import numpy as np
 import scipy.linalg
@@ -29,28 +32,58 @@ def eig_banded_host(band: np.ndarray, backend: str = "scipy", device=None):
     backend="scipy": LAPACK dsbevd via scipy (default).
     backend="native": the in-repo C++ tred2/tql2 solver
     (``csrc/host/band_eig.cpp``); raises if its library cannot be built.
-    backend="device": ``torch.linalg.eigh`` of the densified T in f64 on
-    ``device`` (None: the CUDA card), on a side stream of its own on a
-    CUDA device, so that its two copies neither wait for nor hold up the
-    work queued on the caller's stream; pays two transfers a call."""
+    backend="device": ``torch.linalg.eigh`` of T in f64 on ``device``
+    (None: the CUDA card), densified there from its band, on a side stream
+    of its own on a CUDA device (``eigh_banded_device``)."""
     if backend == "native":
         from ..native import band_eigh
 
         return band_eigh(band)
     if backend == "device":
-        from ..config import resolve_device
-        from .band import band_to_dense
-
-        dev = resolve_device(device)
-        dense = band_to_dense(band.astype(np.float64))
-        if dev.type != "cuda":
-            w, V = eigh_device(torch.as_tensor(dense, device=dev))
-            return w.numpy(), V.numpy()
-        with torch.cuda.stream(torch.cuda.Stream(device=dev)):
-            w, V = eigh_device(torch.as_tensor(dense, device=dev))
-            return w.cpu().numpy(), V.cpu().numpy()
+        return eigh_banded_device(band, device)
     w, V = scipy.linalg.eig_banded(band.astype(np.float64), lower=True)
     return w, V
+
+
+def eigh_banded_device(band: np.ndarray, device=None, k=None):
+    """``torch.linalg.eigh`` in f64 of banded symmetric T, densified on
+    ``device`` (None: the CUDA card) from its band.  Returns numpy (w
+    ascending, V); with ``k``, the k largest-|λ| pairs ascending by |λ|,
+    chosen on ``device`` so that only they, (m × k), are copied back.  On a
+    CUDA device it runs on a side stream of its own (``_side_stream``): the
+    band's copy, the factorization and the copies back neither wait for
+    nor hold up the work queued on the caller's stream."""
+    from ..config import resolve_device
+
+    dev = resolve_device(device)
+
+    def run():
+        Tb = torch.as_tensor(np.ascontiguousarray(band, dtype=np.float64),
+                             device=dev)
+        bw1, m = Tb.shape
+        T = Tb.new_zeros((m, m))
+        for r in range(bw1):
+            T.diagonal(-r).copy_(Tb[r, : m - r])
+            T.diagonal(r).copy_(Tb[r, : m - r])
+        w, V = eigh_device(T)
+        if k is not None:
+            keep = torch.argsort(w.abs(), stable=True)[-k:]
+            w, V = w[keep], V[:, keep]
+        return w.cpu().numpy(), V.cpu().numpy()
+
+    if dev.type != "cuda":
+        return run()
+    with torch.cuda.stream(_side_stream(dev)):
+        return run()
+
+
+@functools.lru_cache(maxsize=None)
+def _side_stream(dev: torch.device):
+    """One side stream a card for every factorization on it.  The caching
+    allocator keeps freed blocks for the stream that allocated them, so a
+    fresh stream from torch's pool of 32 for each call would cudaMalloc
+    the call's buffers anew, 32 times over."""
+    return torch.cuda.Stream(device=dev)
 
 
 def _topk_abs_split(w_all: np.ndarray, k: int) -> tuple[int, int]:

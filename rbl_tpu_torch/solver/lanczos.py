@@ -66,6 +66,7 @@ from ..ops.eig import (
     eig_banded_host,
     eig_banded_topk_dense,
     eig_banded_values_topk,
+    eigh_banded_device,
     ritz_residual_bounds,
     sort_eig_abs,
 )
@@ -93,13 +94,36 @@ class SweepAborted(RuntimeError):
     actually killing anything."""
 
 
+# T's width from which the last factorization of a capped sweep is faster
+# with torch.linalg.eigh on an idle H100 than with host LAPACK on the
+# solve's 4 host threads (PERF.md, the crossover table of the eig polls).
+CARD_EIG_MIN_COLS = 256
+
+
 def _factorize(band, k, backend, device):
     """The k largest-|λ| eigenpairs of T, ascending by |λ|: "scipy" forms
-    only those (``eig_banded_topk_dense``), "native" and "device" factorize
-    fully (``eig_banded_host`` on ``device``) and keep the top k."""
+    only those on the host (``eig_banded_topk_dense``); "device" factorizes
+    fully on ``device`` and copies back only those
+    (``eigh_banded_device``); "native" factorizes fully on the host
+    and keeps the top k."""
     if backend == "scipy":
         return eig_banded_topk_dense(band, k)
-    return sort_eig_abs(*eig_banded_host(band, backend=backend, device=device), k)
+    if backend == "device":
+        return eigh_banded_device(band, device, k)
+    return sort_eig_abs(*eig_banded_host(band, backend=backend), k)
+
+
+def last_eig_backend(backend, device, mesh, m: int) -> str:
+    """The backend of a sweep's last factorization of T (m columns wide)
+    when the sweep ends at its Krylov cap: nothing overlaps it, the card
+    is idle, and above ``CARD_EIG_MIN_COLS`` columns the card factorizes
+    faster than host LAPACK.  So with host polls ("scipy") on a CUDA
+    device, no mesh (ranks must keep producing identical V) and
+    m ≥ CARD_EIG_MIN_COLS it is "device"; else the polls' own."""
+    if (backend == "scipy" and mesh is None and torch.device(device).type == "cuda"
+            and m >= CARD_EIG_MIN_COLS):
+        return "device"
+    return backend
 
 
 def _poll_task(snapshot, k, backend, device, chain, tol, force_full,
@@ -109,7 +133,9 @@ def _poll_task(snapshot, k, backend, device, chain, tol, force_full,
     residual bounds need eigenvectors, but they cannot pass while the top-k
     Ritz values are still moving by more than tol·|λ|max between polls.
 
-    ``backend`` and ``device`` are the factorization's (``_factorize``).
+    ``backend`` and ``device`` are the factorization's (``_factorize``):
+    the polls' own, or for the capped sweep's last poll
+    ``last_eig_backend``'s.
 
     ``chain`` carries the previous poll's screen between tasks ON the
     worker thread (single worker → sequential), so the screen-to-screen
@@ -900,6 +926,8 @@ def lanczos_iteration(
             w_scr, w_old, full, _ = pending["future"].result()
         for name, t0, t1, thread in pending["spans"]:
             timer.record(name, t0, t1, thread)  # the screen and factorization
+        if pending["on_card"]:
+            timer.add("eig_on_card", 1)
         if not selective and len(w_scr) > 1:
             # Immediate tier: at extreme dominance the ghost of the top
             # pair reaches O(1) within ~10 iterations of its convergence —
@@ -1299,13 +1327,16 @@ def lanczos_iteration(
                         # only if this poll converges
                         B_snap, Qp = B_hist[j], None
                     spans = []  # the worker's stamps, recorded at the harvest
+                    bk = (last_eig_backend(eig_bk, dev, mesh, j * b)
+                          if i >= i_max and j == i else eig_bk)
                     pending = dict(
                         future=executor.submit(
-                            _poll_task, snapshot, k, eig_bk, dev, poll_chain, cfg.tol,
+                            _poll_task, snapshot, k, bk, dev, poll_chain, cfg.tol,
                             poll_chain.get("w") is None or (force_poll and j == i),
                             spans,
                         ),
                         spans=spans,
+                        on_card=bk != eig_bk,
                         i_poll=j,
                         B_snap=B_snap,
                         Qprev=Qp,
@@ -1409,9 +1440,11 @@ def lanczos_iteration(
                 # (unless the final async poll already factorized the full T).
                 i_final = store.ncols // b
                 if final_panels != i_final or w_sel is None:
+                    bk = last_eig_backend(eig_bk, dev, mesh, store.ncols)
                     with timer.section("eig"):
-                        w_sel, V_sel = _factorize(T.view(store.ncols), k, eig_bk,
-                                                  dev)
+                        w_sel, V_sel = _factorize(T.view(store.ncols), k, bk, dev)
+                    if bk != eig_bk:
+                        timer.add("eig_on_card", 1)
                 bounds = ritz_residual_bounds(np.asarray(B_last), V_sel, b)
                 i = i_final
     finally:

@@ -406,6 +406,80 @@ def test_eig_backends_on_the_card(backend):
 
 
 @pytest.mark.gpu
+def test_capped_solve_factorizes_its_last_t_on_the_card(monkeypatch):
+    """A solve on the card that ends at its Krylov cap, above the
+    crossover, sends its last factorization of T to the card once
+    (``eig_on_card``), gives the CPU solve's eigenvalues to 1e-10 (f64),
+    and its Lanczos bounds match those of the same solve with the last
+    factorization held on the host to 1e-10 relative to |λ|max."""
+    _needs_card()
+    from rbl_tpu_torch.solver import lanczos
+    from rbl_tpu_torch.utils.profiling import Timer
+
+    A = random_sym(3000, 0.005, seed=3)
+    cap = 512  # the top 8 agree to ~1e-15 by then, whatever the start block
+    assert cap >= lanczos.CARD_EIG_MIN_COLS
+    cfg = rtt.RBLConfig(block_size=8, tol=1e-30, max_kryl_dim=cap)
+
+    def solve(**kw):
+        timer = Timer()
+        res = rtt.rbl(A, 8, cfg=cfg.replace(**kw), timer=timer,
+                      compute_eigenvectors=False)
+        assert not res.converged and res.kryl_dim == cap
+        return res, timer.counters["eig_on_card"]
+
+    card, on_card = solve()
+    ref, _ = solve(device="cpu")
+    assert on_card == 1
+    assert rel_err(card.eigenvalues, ref.eigenvalues) < 1e-10
+    monkeypatch.setattr(lanczos, "last_eig_backend", lambda bk, dev, mesh, m: bk)
+    host, on_card = solve()
+    assert on_card == 0
+    assert rel_err(card.eigenvalues, host.eigenvalues) < 1e-10
+    np.testing.assert_allclose(card.residual_bounds, host.residual_bounds, rtol=0,
+                               atol=1e-10 * np.abs(host.eigenvalues).max())
+
+
+@pytest.mark.gpu
+def test_card_factorizations_share_one_stream():
+    """Every factorization on the card runs on one side stream, so that
+    the caching allocator reuses its buffers: forty more calls reserve no
+    more memory than the first."""
+    _needs_card()
+    from rbl_tpu_torch.ops.eig import eigh_banded_device
+
+    band = np.random.default_rng(0).standard_normal((9, 512))
+    w, V = eigh_banded_device(band, "cuda", 8)
+    reserved = torch.cuda.memory_reserved()
+    for _ in range(40):
+        w2, V2 = eigh_banded_device(band, "cuda", 8)
+    assert torch.cuda.memory_reserved() == reserved
+    assert w.shape == (8,) and V.shape == (512, 8)
+    np.testing.assert_array_equal(np.abs(w2), np.sort(np.abs(w2)))
+
+
+@pytest.mark.gpu
+def test_restarted_sweeps_stay_on_the_host():
+    """rbl_restarted's sweeps end at their cap of restart_kryl_dim
+    columns, below the crossover: none is factorized on the card."""
+    _needs_card()
+    import scipy.sparse as sp
+
+    from rbl_tpu_torch.solver.lanczos import CARD_EIG_MIN_COLS
+    from rbl_tpu_torch.utils.profiling import Timer
+
+    d = np.concatenate([np.linspace(0.0, 1.0, 1994), np.arange(10.0, 16.0)])
+    cfg = rtt.RBLConfig(block_size=2, tol=1e-10)
+    assert cfg.restart_kryl_dim < CARD_EIG_MIN_COLS
+    timer = Timer()
+    res = rtt.rbl_restarted(sp.diags(d), 4, cfg=cfg, b=2, max_restarts=30,
+                            timer=timer)
+    np.testing.assert_allclose(np.sort(res.eigenvalues), d[-4:], rtol=1e-10)
+    assert timer.counts["eig_poll"] + timer.counts["eig"] >= 1
+    assert timer.counters["eig_on_card"] == 0
+
+
+@pytest.mark.gpu
 def test_eigsh_and_svds_on_the_card_return_numpy():
     """The scipy front door places the solve on the card by default and
     returns numpy, equal to the CPU solve's values to 1e-9."""

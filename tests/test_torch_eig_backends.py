@@ -5,7 +5,12 @@ T on the solve's device).  Each factorization against scipy (eigenvalues
 1e-12 relative to ‖T‖, vectors up to sign); a poll of the solver through
 each; ``rbl`` solves in f64 giving the "banded_host" eigenvalues to 1e-10
 and the JAX package's with the same backend; a JAX ``RBLConfig`` with
-``eig_backend="native"`` converted by ``utils.convert`` runs.
+``eig_backend="native"`` converted by ``utils.convert`` runs.  The route of
+a capped sweep's last factorization (``last_eig_backend``): the card only
+for host polls on CUDA with no mesh and T at least ``CARD_EIG_MIN_COLS``
+wide; a capped CPU solve stays on the host bit for bit and counts
+``eig_on_card`` 0; the card route forced onto the CPU gives the host
+route's eigenvalues and bounds to 1e-10.
 """
 
 import dataclasses
@@ -23,7 +28,8 @@ import rbl_tpu
 import rbl_tpu_torch as rtt
 from _torch_parity import CPU, random_sym, rel_err
 from rbl_tpu_torch.ops import eig as teig
-from rbl_tpu_torch.solver.lanczos import _poll_task
+from rbl_tpu_torch.solver import lanczos
+from rbl_tpu_torch.solver.lanczos import CARD_EIG_MIN_COLS, _poll_task, last_eig_backend
 from rbl_tpu_torch.utils.convert import config_from_fields
 from rbl_tpu_torch.utils.profiling import Timer
 
@@ -134,3 +140,68 @@ def test_jax_config_with_native_backend_converts_and_runs():
     np.testing.assert_allclose(
         res.eigenvalues, np.asarray(rbl_tpu.rbl(d, 5, cfg=jcfg).eigenvalues),
         rtol=1e-12)
+
+
+_MESH = object()  # any mesh: the route only asks whether there is one
+
+
+@pytest.mark.parametrize("backend, device, mesh, m, expected", [
+    ("scipy", "cuda", None, CARD_EIG_MIN_COLS, "device"),
+    ("scipy", "cuda", None, 1400, "device"),
+    ("scipy", "cpu", None, 1400, "scipy"),
+    ("scipy", "cuda", _MESH, 1400, "scipy"),
+    ("scipy", "cuda", None, CARD_EIG_MIN_COLS - 1, "scipy"),
+    ("native", "cuda", None, 1400, "native"),
+    ("device", "cuda", None, 1400, "device"),
+    ("device", "cpu", None, 1400, "device"),
+])
+def test_last_eig_backend_routes(backend, device, mesh, m, expected):
+    """The capped sweep's last factorization goes to the card only with
+    host polls, a CUDA device, no mesh and T at least CARD_EIG_MIN_COLS
+    wide; "native" and "device" keep their own."""
+    assert last_eig_backend(backend, torch.device(device), mesh, m) == expected
+
+
+def _capped(compute_eigenvectors=True):
+    """A solve of a random f64 matrix that ends at its Krylov cap, which
+    lies above the crossover (the tolerance is out of reach)."""
+    A = random_sym(1500, 0.01, seed=7)
+    cap = -(-(CARD_EIG_MIN_COLS + 64) // 8) * 8
+    cfg = rtt.RBLConfig(block_size=8, tol=1e-30, max_kryl_dim=cap, device=CPU)
+    timer = Timer()
+    res = rtt.rbl(A, 10, cfg=cfg, timer=timer,
+                  compute_eigenvectors=compute_eigenvectors)
+    assert not res.converged and res.kryl_dim == cap
+    return res, timer
+
+
+def test_capped_cpu_solve_stays_on_the_host(monkeypatch):
+    """On the CPU the route keeps the host: the capped solve counts
+    eig_on_card 0 and gives, bit for bit, the eigenpairs of the solve whose
+    last factorization is held to the polls' backend."""
+    res, timer = _capped()
+    assert timer.counters["eig_on_card"] == 0
+    monkeypatch.setattr(lanczos, "last_eig_backend", lambda bk, dev, mesh, m: bk)
+    held, _ = _capped()
+    np.testing.assert_array_equal(res.eigenvalues, held.eigenvalues)
+    np.testing.assert_array_equal(res.eigenvectors.numpy(), held.eigenvectors.numpy())
+    np.testing.assert_array_equal(res.residual_bounds, held.residual_bounds)
+
+
+@pytest.mark.parametrize("compute_eigenvectors", [False, True])
+def test_card_route_on_the_cpu_matches_the_host_route(monkeypatch,
+                                                      compute_eigenvectors):
+    """The card route (torch's eigh of the densified T, the top k chosen
+    on the device), forced onto the CPU, is counted once and gives the host
+    route's eigenvalues and residuals (the Lanczos bounds without vectors,
+    the true residuals with them) to 1e-10 relative to |λ|max."""
+    host, _ = _capped(compute_eigenvectors)
+    route = lanczos.last_eig_backend
+    monkeypatch.setattr(lanczos, "last_eig_backend",
+                        lambda bk, dev, mesh, m: route(bk, torch.device("cuda"), mesh, m))
+    card, timer = _capped(compute_eigenvectors)
+    assert timer.counters["eig_on_card"] == 1
+    scale = np.abs(host.eigenvalues).max()
+    assert rel_err(card.eigenvalues, host.eigenvalues) < 1e-10
+    np.testing.assert_allclose(card.residual_bounds, host.residual_bounds,
+                               rtol=0, atol=1e-10 * scale)
