@@ -48,7 +48,7 @@ import numpy as np
 import torch
 
 from ..parallel.mesh import col_sumsq
-from ..utils.profiling import timed
+from ..utils.profiling import timed_spmm
 from .spmm.operator import LinearOperator
 
 
@@ -214,7 +214,7 @@ class ChebyshevProductFilter(LinearOperator):
         # torch.tensor copies: the cached array stays read-only
         roots = c + e * torch.tensor(self._unit_roots(), dtype=X.dtype,
                                      device=X.device)
-        apply = timed(self.base.apply, self.timer, "spmm")
+        apply = timed_spmm(self.base.apply, self.timer)
         Y = X
         for i in range(self.degree):
             Y = apply(Y) - roots[i] * Y

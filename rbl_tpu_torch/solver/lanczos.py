@@ -74,7 +74,7 @@ from ..ops.qr import block_qr
 from ..ops.reorth import deflate, project_out
 from ..ops.spmm.operator import LinearOperator, _pet, dot
 from ..parallel.mesh import col_sumsq, randn_rows
-from ..utils.profiling import clock_ns, null_timer, timed
+from ..utils.profiling import clock_ns, null_timer, timed_spmm
 from .basis import BasisStore
 
 # Observability: RBL_DEBUG=1 prints solver state transitions (danger /
@@ -227,8 +227,7 @@ def first_step_fn(op: LinearOperator, Qb, cdt, qr_method, mesh=None,
     ranks.  ``timer`` times the step's "spmm", "project" and "qr"."""
     tm = timer or null_timer()
     Qc = Qb.to(cdt)
-    with tm.section("spmm"):
-        U = op.apply(Qc)
+    U = timed_spmm(op.apply, timer)(Qc)
     with tm.section("project"):
         Ai = gram(Qc, U, mesh=mesh)
         U = U - dot(Qc, Ai, _pet(cdt))
@@ -293,6 +292,7 @@ def _sweep_chunk(
     b = Qi.shape[1]
     acc = _pet(cdt)
     tm = timer or null_timer()
+    apply = timed_spmm(op.apply, timer)
     out = []
     for s in range(nsteps):
         # archive Q_{j-1} first: blocks are final at creation, and having
@@ -301,8 +301,7 @@ def _sweep_chunk(
         basis_buf[:, c : c + b].copy_(Qprev)
         Qc = Qi.to(cdt)
         Qp = Qprev.to(cdt)
-        with tm.section("spmm"):
-            U = op.apply(Qc)
+        U = apply(Qc)
         with tm.section("project"):
             U = U - dot(Qp, Bi.T, acc)
             Ai = gram(Qc, U, mesh=mesh)
@@ -352,8 +351,7 @@ def _split_step_recur(op: LinearOperator, basis_buf, Qi, Qprev, Bi, col, *, cdt,
     tm = timer or null_timer()
     basis_buf[:, col : col + Qprev.shape[1]].copy_(Qprev)
     Qc = Qi.to(cdt)
-    with tm.section("spmm"):
-        U = op.apply(Qc)
+    U = timed_spmm(op.apply, timer)(Qc)
     with tm.section("project"):
         U = U - dot(Qprev.to(cdt), Bi.T, acc)
         Ai = gram(Qc, U, mesh=mesh)
@@ -512,7 +510,7 @@ def _rayleigh_refine(op: LinearOperator, X, theta0, cdt, width=None, mesh=None,
     theta0 = theta0.to(device=Xc.device, dtype=cdt)
     k = Xc.shape[1]
     w = width or max(k, 1)
-    apply = timed(op.apply, timer, "spmm")
+    apply = timed_spmm(op.apply, timer)
     AX = torch.cat([apply(Xc[:, j : j + w]) for j in range(0, k, w)], dim=1)
     Y = AX - Xc * theta0[None, :]
     num = torch.diagonal(gram(Xc, Y, mesh=mesh))
@@ -564,7 +562,7 @@ def random_start_block(op: LinearOperator, gen: torch.Generator, b: int,
             lo, hi = mesh.row_range(op.n)
             v0 = v0[lo:hi]
         Omega[:, 0] = v0.to(device=op.device, dtype=cdt)
-    Y = Omega if raw else timed(op.apply, timer, "spmm")(Omega)
+    Y = Omega if raw else timed_spmm(op.apply, timer)(Omega)
     Q1, _ = block_qr(Y, method=cfg.resolved_qr_method(), mesh=mesh, n=op.n)
     return Q1.to(cfg.basis_dtype)
 

@@ -49,7 +49,7 @@ from ..ops.qr import block_qr
 from ..ops.spmm.operator import AffineOperator, as_operator, cast_operator, dot
 from ..parallel.dist_spmm import on_mesh, op_mesh
 from ..parallel.mesh import col_sumsq, local_rows, randn_rows
-from ..utils.profiling import null_timer
+from ..utils.profiling import null_timer, timed_spmm
 from .lanczos import LanczosResult
 from .rbl import rbl
 
@@ -57,10 +57,8 @@ from .rbl import rbl
 def _rr_gram(op, X, mesh=None, timer=None):
     """A·X and the (m, m) Rayleigh–Ritz matrix XᵀAX; ``timer`` times the
     apply as "spmm" and the Gram as "project"."""
-    tm = timer or null_timer()
-    with tm.section("spmm"):
-        AX = op.apply(X)
-    with tm.section("project"):
+    AX = timed_spmm(op.apply, timer)(X)
+    with (timer or null_timer()).section("project"):
         return gram(X, AX, mesh=mesh), AX
 
 

@@ -144,15 +144,18 @@ def null_timer():
     return _NULL
 
 
-def timed(fn, timer, name: str):
-    """``fn``, or, with a timer, ``fn`` called inside its section ``name``
-    (e.g. an operator's ``apply`` as the section "spmm")."""
+def timed_spmm(apply, timer):
+    """An operator's ``apply``, or, with a timer, ``apply`` called inside
+    the section "spmm", each call adding the columns of its block to the
+    counter "spmm_cols" (the widths a solve applied its operator at, which
+    the operator's bytes and operations are counted from)."""
     if timer is None or timer is _NULL:
-        return fn
+        return apply
 
-    def run(*args):
-        with timer.section(name):
-            return fn(*args)
+    def run(X):
+        with timer.section("spmm"):
+            timer.add("spmm_cols", X.shape[1])
+            return apply(X)
 
     return run
 

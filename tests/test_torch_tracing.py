@@ -20,7 +20,7 @@ from _torch_parity import CPU
 from rbl_tpu_torch.ops.chebyshev import ChebyshevProductFilter
 from rbl_tpu_torch.solver.lanczos import _poll_task
 from rbl_tpu_torch.solver.polish import rbl_polished
-from rbl_tpu_torch.utils.profiling import Timer, clock_ns, null_timer, timed
+from rbl_tpu_torch.utils.profiling import Timer, clock_ns, null_timer, timed_spmm
 from rbl_tpu_torch.utils.suitesparse import laplacian_2d
 
 STEP_SPANS = ("spmm", "project", "qr")
@@ -245,8 +245,8 @@ def test_a_solve_without_a_timer_adds_no_span_and_wraps_nothing():
     assert not names & {"spmm", "project", "qr", "sweep_dispatch", "eig_last",
                         "chunk_scan", "solve_setup", "ritz"}
     op = rtt.Laplacian2D(8, 8, device=CPU)
-    assert timed(op.apply, None, "spmm") == op.apply
-    assert timed(op.apply, null_timer(), "spmm") == op.apply
+    assert timed_spmm(op.apply, None) == op.apply
+    assert timed_spmm(op.apply, null_timer()) == op.apply
     calls = []
 
     class Counting:
