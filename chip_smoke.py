@@ -21,7 +21,7 @@ a user calls, and checks the answers:
   5. rbl on fem42 (format="bsr") at k = 100, b = 8 and b = 16 (f32), held
      to the first 90 ARPACK eigenvalues (benchmarks/groundtruth/
      fem42_lm_k100.npz) within 1e-2 relative, with the kernel launch
-     counts of the run;
+     counts of the run (phases 4-5 must launch B1, B2, K1 and K2);
   6. the blocked-ELL (B3) and panel (B4) kernels against their plain
      versions, f32 (1e-5) and f64 (1e-12): B3 on fem42's blocked-ELL at
      bm = 128 (b = 8, 16), B4 on fem42's panel layout of the auto plan
@@ -231,6 +231,16 @@ a user calls, and checks the answers:
      spectrum); aot_coldstart_bench in a fresh process (the same gate);
      scaling_bench on 8 gloo ranks sharing the card (every mesh size's T
      blocks bitwise equal across its ranks).  Every cut is printed.
+ 29. (run right after phases 4-5) the products against the stored basis,
+     csrc/skinny.cu's Gram K1 (``ops/contract.py`` ``gram``) and update K2
+     (``update``, W − V·round(G)), on a column prefix of a row-major
+     buffer at the cells' shapes: a bf16 prefix of 400 and 768 columns
+     against an f32 block of 16 (n = 262,144), f32 prefixes of 700 and
+     1,400 against 8 (n = 232,974), f64 prefixes of 256 and 720 against 8,
+     and the one-block Grams (f32 16 × 16 and 8 × 8, f64 8 × 8); each
+     against its plain version on the same inputs and bitwise equal on a
+     second call, timed (L2 flushed) beside the plain version, one
+     torch.matmul and the byte bound.
 
 Phases 11-14, 17, 19, 20 and 22 launch B1/B2 through BlockSparseOperator.apply.
 Phase 14's fem42 polish applies A to k + buffer + random columns at once
@@ -244,7 +254,9 @@ both B1 (its f32 coarse sweep) and B2, phase 19 one of them, phase 23
 B2 (one rank) and B1 (each of two ranks), and phase 24 both B1 (the
 replicated levels) and B2 (fem47's K) on one rank and B1 on two
 (``launches_by_phase["24 (2 ranks)"]``), phases 25 and 27 B1, and
-phase 28 B1, B2 and B4.  After
+phase 28 B1, B2 and B4; K1's and K2's ``launches`` are those of phases
+4-5, counted from zero there, and each counted phase's own are in their
+``launches_by_phase``.  After
 phase 17 each BSR level's product is also timed through torch.sparse CSR
 (the level's nonzeros), and after phase 14 both entry points are timed at
 90 columns too.  The last two lines are the kernels' JSON
@@ -283,7 +295,13 @@ KERNELS = {
                        "benchmarks/dma_stream_bench.py:83"),
     "dma_stream_manual": ("rbl_tpu_torch/csrc/dma_stream.cu",
                           "benchmarks/dma_stream_bench.py:130"),
+    "gram_kernel": ("rbl_tpu_torch/csrc/skinny.cu",
+                    "none: XLA's dot (rbl_tpu/ops/contract.py gram)"),
+    "update_kernel": ("rbl_tpu_torch/csrc/skinny.cu",
+                      "none: XLA's dot (rbl_tpu/ops/reorth.py project_out)"),
 }
+# the skinny kernels' Python wrappers, by kernel (their launch counters)
+SKINNY = {"gram_kernel": "gram", "update_kernel": "update"}
 TOL = {"float32": 1e-5, "float64": 1e-12}  # max |Y - Y_plain| / max |Y_plain|
 # NVIDIA H100 SXM published peaks (NVIDIA data sheet): HBM bytes/s
 # and float32 FMA-unit operations/s
@@ -298,14 +316,18 @@ def card_line() -> str:
     ).stdout.strip()
 
 
-def time_ms(fn, reps: int = 20) -> float:
-    """Median per-call device time of ``fn`` (CUDA events), after a warm-up."""
+def time_ms(fn, reps: int = 20, flush=None) -> float:
+    """Median per-call device time of ``fn`` (CUDA events), after a
+    warm-up; with ``flush`` (a tensor larger than the L2), zeroed before
+    each call, outside the timed events."""
     import torch
 
     fn()
     torch.cuda.synchronize()
     times = []
     for _ in range(reps):
+        if flush is not None:
+            flush.zero_()
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -2863,6 +2885,91 @@ def phase_benches(A42, head: np.ndarray, card: str) -> None:
           "ranks")
 
 
+# phase 29's shapes: (label, n, p, q, V dtype, W dtype): the cells' prefixes
+# (lap2d_512.k50_b16: bf16 at 400 and 768 columns against an f32 block of
+# 16; petsc_ex56_ne42.k100_b8: f32 at 700 and 1,400 against 8; the
+# polishes: f64 against 8) and the one-block Grams of each
+SKINNY_SHAPES = (
+    ("lap2d k50 prefix", 262_144, 400, 16, "bfloat16", "float32"),
+    ("lap2d k50 prefix", 262_144, 768, 16, "bfloat16", "float32"),
+    ("ex56 k100 prefix", 232_974, 700, 8, "float32", "float32"),
+    ("ex56 k100 prefix", 232_974, 1400, 8, "float32", "float32"),
+    ("polish f64 prefix", 262_144, 256, 8, "float64", "float64"),
+    ("polish f64 prefix", 262_144, 720, 8, "float64", "float64"),
+    ("one block", 262_144, 16, 16, "float32", "float32"),
+    ("one block", 232_974, 8, 8, "float32", "float32"),
+    ("one block", 262_144, 8, 8, "float64", "float64"),
+)
+SKINNY_MAIN = ("lap2d k50 prefix", 768)  # the shape of each kernel's top-level row
+
+
+def phase_skinny(kernels: dict, card: str) -> None:
+    """Phase 29: K1 (``contract.gram``) and K2 (``contract.update``) on card
+    tensors at ``SKINNY_SHAPES``, V a column prefix of a row-major buffer,
+    each against its plain version on the same inputs (K1 within 2e-6 (f32
+    accumulation) or 1e-14 (f64) of |V|ᵀ|W| entry by entry; K2 within 2e-6
+    or 1e-12 of |V|·|round(G)| + |W|) and bitwise equal on a second call;
+    times (CUDA events, median of 20 single calls, the L2 flushed before
+    each) beside the plain version, one torch.matmul in V's dtype and the
+    byte bound (K1 reads V and W, K2 also writes the result).  Rows in
+    ``kernels["gram_kernel"]`` and ``kernels["update_kernel"]``."""
+    import torch
+
+    from rbl_tpu_torch.ops import contract
+
+    flush = torch.empty(64 << 20, dtype=torch.int32, device="cuda")
+    tol = {torch.float32: (2e-6, 2e-6), torch.float64: (1e-14, 1e-12)}
+    for label, n, p, q, vdt, wdt in SKINNY_SHAPES:
+        vdt, wdt = getattr(torch, vdt), getattr(torch, wdt)
+        acc = torch.float64 if wdt == torch.float64 else torch.float32
+        g = torch.Generator(device="cuda").manual_seed(p * 1000 + q)
+        buf = torch.zeros((n, p + 16), dtype=vdt, device="cuda")
+        buf[:, :p] = (torch.randn((n, p), generator=g, device="cuda") / n ** 0.5).to(vdt)
+        V = buf[:, :p]
+        W = torch.randn((n, q), generator=g, dtype=wdt, device="cuda")
+        Va, Wa = V.abs().to(torch.float64), W.abs().to(torch.float64)
+        G = contract.gram(V, W)
+        ref = contract._plain_gram(V, W, 8192, acc)
+        err_g = float(((G.to(torch.float64) - ref.to(torch.float64)).abs()
+                       / (Va.T @ Wa).clamp_min(1e-300)).max())
+        out = contract.update(V, ref, W)
+        want = contract._plain_update(V, ref, W, acc)
+        scale = Va @ ref.to(vdt).abs().to(torch.float64) + Wa
+        err_u = float(((out.to(torch.float64) - want.to(torch.float64)).abs()
+                       / scale.clamp_min(1e-300)).max())
+        if not (err_g < tol[acc][0] and err_u < tol[acc][1]):
+            raise AssertionError(f"skinny {label} p={p} q={q}: K1 {err_g:.3e}, K2 "
+                                 f"{err_u:.3e} against the plain versions")
+        if not (torch.equal(G, contract.gram(V, W))
+                and torch.equal(out, contract.update(V, ref, W))):
+            raise AssertionError(f"skinny {label} p={p} q={q}: two calls differ")
+        Wv, Gv = W.to(vdt), ref.to(vdt)
+        sv, sw = V.element_size(), W.element_size()
+        shape = f"{label}: V {str(vdt)[6:]} (n {n}, p {p}), W {str(wdt)[6:]} q {q}"
+        for name, err, call, plain, lib, moved in (
+                ("gram_kernel", err_g, lambda: contract.gram(V, W),
+                 lambda: contract._plain_gram(V, W, 8192, acc),
+                 lambda: torch.matmul(V.mT, Wv), n * p * sv + n * q * sw),
+                ("update_kernel", err_u, lambda: contract.update(V, ref, W),
+                 lambda: contract._plain_update(V, ref, W, acc),
+                 lambda: torch.matmul(V, Gv), n * p * sv + 2 * n * q * sw)):
+            row = dict(max_rel_err=err, ms=time_ms(call, flush=flush),
+                       plain_ms=time_ms(plain, flush=flush),
+                       library_ms=time_ms(lib, flush=flush),
+                       **bound(moved, 2 * n * p * q))
+            entry = kernels.setdefault(name, {})
+            entry.setdefault("path_shapes", []).append(dict(phase=29, shape=shape, **row))
+            if (label, p) == SKINNY_MAIN:
+                entry.update(shape=shape, **row)
+            print(f"{name} {shape}: rel err {err:.2e}, kernel {row['ms']:.4f} ms, "
+                  f"bound {row['bound_ms']:.4f} ms ({row['bound_ms'] / row['ms']:.0%}), "
+                  f"plain {row['plain_ms']:.4f} ms, torch.matmul "
+                  f"{row['library_ms']:.4f} ms  [{card}]")
+        del buf, V, W, Va, Wa, G, ref, out, want, scale, Wv, Gv
+    del flush
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     import torch
 
@@ -2876,6 +2983,7 @@ def main() -> int:
         return 2
     import rbl_tpu_torch as rt
     from rbl_tpu_torch.benchmarks import dma_stream_bench as tds
+    from rbl_tpu_torch.ops import contract
     from rbl_tpu_torch.ops.spmm import _kernels, bsr
     from rbl_tpu_torch.utils.fem import fem_elasticity_3d
 
@@ -2888,6 +2996,7 @@ def main() -> int:
     packed = (bsr.bsr_spmm_packed_resident, bsr.bsr_spmm_packed)
     every = (*packed, bsr.bsr_spmm, bsr.bsr_spmm_panel)
     probes = (tds.dma_stream, tds.dma_stream_dot, tds.dma_stream_manual)
+    skinny = {name: getattr(contract, fn) for name, fn in SKINNY.items()}
 
     # --- 2. build -----------------------------------------------------------
     t0 = time.perf_counter()
@@ -2933,7 +3042,7 @@ def main() -> int:
 
     # --- 4./5. the main path ------------------------------------------------
     head = np.load(GROUNDTRUTH)["eigenvalues"][:90]
-    reset_launches(*every)
+    reset_launches(*every, *skinny.values())
     t_main = time.perf_counter()
     lap = rt.Laplacian2D(512, 512, dtype=torch.float32, device="cuda")
     cfg = rt.RBLConfig(block_size=16, basis_dtype=torch.bfloat16,
@@ -2960,16 +3069,23 @@ def main() -> int:
               f"{bsr.bsr_spmm_packed_resident.launches} streaming="
               f"{bsr.bsr_spmm_packed.launches}  [{card}]")
     launches = {f.__name__: f.launches for f in every}
+    launches.update({name: f.launches for name, f in skinny.items()})
     by_phase = {name: {} for name in KERNELS}
-    print(f"main path: {time.perf_counter() - t_main:.1f} s")
-    for f in packed:
-        by_phase[f.__name__]["4-5"] = launches[f.__name__]
-        if launches[f.__name__] < 1:
-            raise AssertionError(f"main path never launched {f.__name__}")
+    print(f"main path: {time.perf_counter() - t_main:.1f} s, skinny launches "
+          f"{ {name: launches[name] for name in skinny} }")
+    for name in (*(f.__name__ for f in packed), *skinny):
+        by_phase[name]["4-5"] = launches[name]
+        if launches[name] < 1:
+            raise AssertionError(f"main path never launched {name}")
+
+    # --- 29. the products against the stored basis at the cells' shapes ---
+    t29 = time.perf_counter()
+    phase_skinny(kernels, card)
+    print(f"phase 29: {time.perf_counter() - t29:.1f} s")
 
     # --- 11.-14. the long-solve paths, each read on its own ------------------
     def long_phase(number, must_launch, fn, *args, fns=packed):
-        reset_launches(*every)
+        reset_launches(*every, *skinny.values())
         t0 = time.perf_counter()
         out = fn(*args)
         counts = {f.__name__: f.launches for f in fns}
@@ -2978,7 +3094,10 @@ def main() -> int:
                 raise AssertionError(f"phase {number} never launched {f.__name__}")
         for name, c in counts.items():
             by_phase[name][str(number)] = c
-        print(f"phase {number}: {time.perf_counter() - t0:.1f} s, launches {counts}")
+        for name, f in skinny.items():
+            by_phase[name][str(number)] = f.launches
+        print(f"phase {number}: {time.perf_counter() - t0:.1f} s, launches {counts}, "
+              f"skinny { {name: f.launches for name, f in skinny.items()} }")
         return out
 
     B1, B2 = packed

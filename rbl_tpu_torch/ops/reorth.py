@@ -22,19 +22,16 @@ from __future__ import annotations
 
 import torch
 
-from .contract import gram
+from .contract import gram, update
 from .qr import block_qr
-from .spmm.operator import _pet, dot
 
 
 def project_out(basis, W, mesh=None):
     """W <- W - basis @ (basisᵀ @ W).  basis: (n, M), the stored prefix
     (or a zero-padded buffer); W: (n, p).  The coefficients are rounded to
     the basis dtype, as in the JAX package, and the update accumulates in
-    f32 at least."""
-    acc = _pet(W.dtype)
-    G = gram(basis, W, mesh=mesh)
-    return W - dot(basis, G.to(basis.dtype), acc).to(W.dtype)
+    f32 at least.  On the card: one launch of each skinny kernel."""
+    return update(basis, gram(basis, W, mesh=mesh), W)
 
 
 def partial_reorth(basis, Qi, Qprev, qr_method: str = "householder",

@@ -61,7 +61,7 @@ import torch
 
 from ..config import RBLConfig
 from ..ops.band import BlockTridiagonalT
-from ..ops.contract import gram
+from ..ops.contract import gram, update
 from ..ops.eig import (
     eig_banded_host,
     eig_banded_topk_dense,
@@ -538,7 +538,7 @@ def recover_eigvec(store: BasisStore, Vk: np.ndarray) -> torch.Tensor:
         part = dot(panel, Vt[off : off + w], acc)
         out = part if out is None else out + part
         off += w
-    dev_part = dot(basis, Vt[store.dev_base :], acc)
+    dev_part = update(basis, Vt[store.dev_base :], None, acc)
     return dev_part if out is None else out + dev_part
 
 
