@@ -51,6 +51,7 @@ from __future__ import annotations
 
 import concurrent.futures
 import dataclasses
+import functools
 import os
 import threading
 from collections import deque
@@ -220,36 +221,90 @@ class LanczosResult:
 # step functions
 # ----------------------------------------------------------------------------
 
-def first_step_fn(op: LinearOperator, Qb, cdt, qr_method, mesh=None,
-                  timer=None):
-    """Unrolled first iteration (reference RBL.jl:79-89).  Under ``mesh``
-    the blocks are the rank's rows; the Gram and the QR reduce over the
-    ranks.  ``timer`` times the step's "spmm", "project" and "qr"."""
+def _step(op: LinearOperator, Qi, Qprev, Bi, *, cdt, qr_method, scrub=None,
+          lock_basis=None, mesh=None, timer=None):
+    """One block Lanczos step (reference RBL.jl:79-89 first, 97-104 after):
+    U = A·Q_i − Q_{i−1}·B_iᵀ (no subtraction on the first step, ``Qprev``
+    None);  A_i = Q_iᵀU;  U −= Q_i·A_i;  ``scrub(U, Qi, Qc, Qp)``
+    reorthogonalizes the newborn residual (Qc, Qp: the compute-dtype copies
+    of Q_i, Q_{i−1});  U is deflated against ``lock_basis``;
+    Q_{i+1}B_{i+1} = qr(U).  The basis-precision blocks are promoted to
+    compute precision on entry — the mixed-precision seam of
+    RBL_gpu.jl:142-143,173-175.  Under ``mesh`` the blocks are the rank's
+    rows; the Gram and the QR reduce over the ranks.
+
+    Returns (Q_{i+1} in Qi's dtype, B_{i+1}, A_i).  ``timer`` times the
+    step's "spmm", "project" (the three-term subtraction to the deflation)
+    and "qr"."""
     tm = timer or null_timer()
-    Qc = Qb.to(cdt)
+    acc = _pet(cdt)
+    Qc = Qi.to(cdt)
+    Qp = None if Qprev is None else Qprev.to(cdt)
     U = timed_spmm(op.apply, timer)(Qc)
     with tm.section("project"):
+        if Qp is not None:
+            U = U - dot(Qp, Bi.T, acc)
         Ai = gram(Qc, U, mesh=mesh)
-        U = U - dot(Qc, Ai, _pet(cdt))
+        U = U - dot(Qc, Ai, acc)
+        if scrub is not None:
+            U = scrub(U, Qi, Qc, Qp)
+        if lock_basis is not None:
+            # deflate the newborn residual EVERY step: locked directions
+            # re-enter U through A, and a block born between cadence
+            # deflations would freeze that content into the basis
+            U = deflate(lock_basis, U, mesh)
     with tm.section("qr"):
         Qn, Bn = block_qr(U, method=qr_method, mesh=mesh, n=op.n)
-    return Qn.to(Qb.dtype), Bn, Ai
+    return Qn.to(Qi.dtype), Bn, Ai
 
 
-def recurrence_step_fn(op: LinearOperator, Qi_b, Qprev_b, Bi, cdt, qr_method,
-                       mesh=None):
-    """Three-term block recurrence (reference RBL.jl:97-104):
-    U = A·Q_i − Q_{i−1}·B_iᵀ;  A_i = Q_iᵀU;  U −= Q_i·A_i;  Q_{i+1}B_{i+1} = qr(U).
-    Promotes the basis-precision blocks to compute precision on entry — the
-    mixed-precision seam of RBL_gpu.jl:142-143,173-175."""
-    acc = _pet(cdt)
-    Qc = Qi_b.to(cdt)
-    Qp = Qprev_b.to(cdt)
-    U = op.apply(Qc) - dot(Qp, Bi.T, acc)
-    Ai = gram(Qc, U, mesh=mesh)
-    U = U - dot(Qc, Ai, acc)
-    Qn, Bn = block_qr(U, method=qr_method, mesh=mesh, n=op.n)
-    return Qn.to(Qi_b.dtype), Bn, Ai
+def _local_scrub(U, Qi, Qc, Qp, *, passes, mesh):
+    """Local scrub (reference loc_reorth!'s role): the newborn residual
+    orthogonal to its two parents."""
+    for _ in range(passes):
+        U = project_out(Qp, U, mesh)
+        U = project_out(Qc, U, mesh)
+    return U
+
+
+def _full_scrub(stored, U, Qi, Qc, Qp, *, passes, mesh):
+    """Full scrub on the device: each pass projects the newborn residual
+    against the stored prefix (which now holds Q_{i−1}) and then the
+    not-yet-stored Q_i."""
+    for _ in range(passes):
+        U = project_out(stored, U, mesh)
+        U = project_out(Qc, U, mesh)
+    return U
+
+
+def _tiered_full_scrub(store, timer, stored, U, Qi, Qc, Qp, *, passes, mesh):
+    """Full scrub of a store with a host tier (reference
+    hybrid_part_reorth!, RBL_gpu.jl:59-81, re-designed for
+    T-consistency): the offloaded panels re-enter the device and project
+    the newborn residual of EVERY full-scrub step, never the live pair
+    (Qi, Qprev), whose T couplings (A_{i−1}, B_i) are already recorded — a
+    retroactive edit makes T ≠ QᵀAQ by O(‖leak‖·‖A‖).  One tiered scrub
+    per window is NOT enough: leaks along offloaded dominant directions
+    re-amplify by ~|λ|max/|λ|min per step.
+
+    Panel-major, not pass-major: each host panel crosses to the device once
+    and is projected ``passes`` times consecutively.  Pass-major (the
+    textbook BCGS2 sweep order) would either re-transfer the whole host
+    tier per pass or hold every panel on the device at once — and the tier
+    exists precisely because device memory is full.  Reordering is safe
+    because the panels are mutually orthonormal to basis precision:
+    cross-panel re-injection from a later projection is
+    O(‖QᵢᵀQⱼ‖·eps·‖U‖), far below the CGS2 floor.  Q_i is projected as
+    stored, in the basis dtype.  Counts "basis_split_steps"."""
+    for _ in range(passes):
+        U = project_out(stored, U, mesh)
+    for panel in store.stream_host_tier():
+        for _ in range(passes):
+            U = project_out(panel, U, mesh)
+    for _ in range(passes):
+        U = project_out(Qi, U, mesh)
+    timer.add("basis_split_steps", 1)
+    return U
 
 
 def _sweep_chunk(
@@ -269,6 +324,7 @@ def _sweep_chunk(
     reorth_passes=1,
     mesh=None,
     timer=None,
+    full_scrub=_full_scrub,
 ):
     """``nsteps`` Lanczos iterations between two host reads.
 
@@ -278,7 +334,9 @@ def _sweep_chunk(
     Q_{j-1} at columns col0 + s·b and its scrub contracts over the stored
     prefix up to and including that block.
 
-    reorth_pattern: booleans per step (full scrub or local scrub).
+    reorth_pattern: booleans per step (full scrub or local scrub);
+    ``full_scrub`` is the full scrub's order: ``_full_scrub``, or with a
+    host tier ``_tiered_full_scrub`` bound to the store and the timer.
     Returns (basis_buf, Qi, Qprev, Bi, TB) with TB = (2·nsteps, b, b):
     TB[2s] = A_i, TB[2s+1] = B_{i+1} of step s.
 
@@ -287,90 +345,26 @@ def _sweep_chunk(
     its QR gives B_{j+1} of the *scrubbed* residual and leaves every
     recorded block untouched, so T ≡ QᵀAQ up to rounding, by construction.
 
-    ``timer`` times each step's "spmm", "project" (the three-term
-    subtraction to the last scrub) and "qr"."""
+    ``timer`` times each step's "spmm", "project" and "qr"."""
     b = Qi.shape[1]
-    acc = _pet(cdt)
-    tm = timer or null_timer()
-    apply = timed_spmm(op.apply, timer)
+    local = functools.partial(_local_scrub, passes=loc_passes, mesh=mesh)
     out = []
     for s in range(nsteps):
         # archive Q_{j-1} first: blocks are final at creation, and having
-        # it in the buffer lets the residual projection below cover it
+        # it in the buffer lets the residual projection cover it
         c = col0 + s * b
         basis_buf[:, c : c + b].copy_(Qprev)
-        Qc = Qi.to(cdt)
-        Qp = Qprev.to(cdt)
-        U = apply(Qc)
-        with tm.section("project"):
-            U = U - dot(Qp, Bi.T, acc)
-            Ai = gram(Qc, U, mesh=mesh)
-            U = U - dot(Qc, Ai, acc)
-            if reorth_pattern[s]:
-                # full scrub: project against the whole stored basis (which
-                # now includes Q_{j-1}) and the not-yet-stored Q_j
-                stored = basis_buf[:, : c + b]
-                for _ in range(max(reorth_passes, 1)):
-                    U = project_out(stored, U, mesh)
-                    U = project_out(Qc, U, mesh)
-            else:
-                # local scrub (reference loc_reorth!'s role): newborn
-                # residual orthogonal to its two parents
-                for _ in range(loc_passes):
-                    U = project_out(Qp, U, mesh)
-                    U = project_out(Qc, U, mesh)
-            if lock_basis is not None:
-                # deflate the newborn residual EVERY step: locked
-                # directions re-enter U through A, and a block born between
-                # cadence deflations would freeze that content into the basis
-                U = deflate(lock_basis, U, mesh)
-        with tm.section("qr"):
-            Qnext, Bnext = block_qr(U, method=qr_method, mesh=mesh, n=op.n)
+        scrub = (functools.partial(full_scrub, basis_buf[:, : c + b],
+                                   passes=max(reorth_passes, 1), mesh=mesh)
+                 if reorth_pattern[s] else local)
+        Qnext, Bnext, Ai = _step(op, Qi, Qprev, Bi, cdt=cdt, qr_method=qr_method,
+                                 scrub=scrub, lock_basis=lock_basis, mesh=mesh,
+                                 timer=timer)
         out.append(Ai)
         out.append(Bnext)
-        Qprev, Qi, Bi = Qi, Qnext.to(Qi.dtype), Bnext
+        Qprev, Qi, Bi = Qi, Qnext, Bnext
     TB = torch.stack(out)
     return basis_buf, Qi, Qprev, Bi, TB
-
-
-def _split_step_recur(op: LinearOperator, basis_buf, Qi, Qprev, Bi, col, *, cdt,
-                      mesh=None, timer=None):
-    """Archive Qprev at buffer column ``col`` and run ONE three-term-
-    recurrence step, halted at the raw residual U (before any
-    reorthogonalization or QR).  Returns (U, A_i).
-
-    Used when the host tier is active: the offloaded panels must project
-    the NEWBORN residual, never the live pair (Qi, Qprev) whose T
-    couplings (A_{i-1}, B_i) are already recorded — retroactively
-    scrubbing recorded blocks makes T ≠ QᵀAQ by O(‖leak‖·‖A‖) (the
-    reference's hybrid_part_reorth! does exactly that, RBL_gpu.jl:59-81).
-    The caller streams each host panel through a projection of U,
-    finishes the step with _split_step_qr, and runs the window's
-    local-scrub steps through the normal _sweep_chunk."""
-    acc = _pet(cdt)
-    tm = timer or null_timer()
-    basis_buf[:, col : col + Qprev.shape[1]].copy_(Qprev)
-    Qc = Qi.to(cdt)
-    U = timed_spmm(op.apply, timer)(Qc)
-    with tm.section("project"):
-        U = U - dot(Qprev.to(cdt), Bi.T, acc)
-        Ai = gram(Qc, U, mesh=mesh)
-        U = U - dot(Qc, Ai, acc)
-    return U, Ai
-
-
-def _split_step_qr(U, lock_basis, *, qr_method, bdt, mesh=None, n=None,
-                   timer=None):
-    """Finish a split step: deflate the (now host-tier-clean) residual
-    against the lock set and orthonormalize it (U: the rank's rows of n
-    under ``mesh``)."""
-    tm = timer or null_timer()
-    if lock_basis is not None:
-        with tm.section("project"):
-            U = deflate(lock_basis, U, mesh)
-    with tm.section("qr"):
-        Qn, Bn = block_qr(U, method=qr_method, mesh=mesh, n=n)
-    return Qn.to(bdt), Bn
 
 
 def _start_host_copy(TB):
@@ -445,37 +439,21 @@ def _split_coupling(B_s: np.ndarray, r0: int):
     return Pf, B_new
 
 
-def _rotate_healthy(Qold, P, *, r0):
-    """The healthy part of a partially-collapsed block: (Q_old·P)[:, :r0]."""
-    return dot(Qold, P.to(Qold.dtype), _pet(Qold.dtype))[:, :r0]
-
-
-def _repair_partial_block(store, Qprev, Qold, P, lock_basis, gen, *, r0, qr_method,
-                          mesh=None, n=None):
-    """Partial-breakdown repair: the residual U = Q_old·B lost rank —
-    σ_{r0+1..b}(B) sit at the breakdown floor while σ_{1..r0} are healthy.
-    QR of a rank-deficient residual orthonormalizes ROUNDING NOISE into the
-    dead columns, which the next application of A re-amplifies into ghost
-    eigenvalues.
-
-    Repair: rotate Q_old by B's left singular basis P so the honest
-    residual directions land in the first r0 columns — exactly preserved,
-    keeping T ≡ QᵀAQ — and replace the dead columns with fresh randomness
-    orthogonalized against everything (_fresh_directions)."""
-    H = _rotate_healthy(Qold, P, r0=r0)
-    Z = _fresh_directions(
-        store, (Qprev, H), lock_basis, gen,
-        (Qold.shape[0], Qold.shape[1] - r0), Qold.dtype, qr_method, mesh, n,
-    )
-    return torch.cat([H, Z], dim=1)
-
-
 def _repair_block(store, Qprev, Qold, B_s, rank, lock_basis, gen, qr_method,
                   mesh=None, n=None):
-    """Dispatch a rank-``rank`` coupling-block repair: rank ≥ 1 keeps the
-    healthy singular directions (_repair_partial_block); rank == 0
-    degenerates to full re-randomization with a zero coupling, exactly the
-    total-collapse treatment.  Returns (Q_new, B_new host array)."""
+    """Partial-breakdown repair: the residual U = Q_old·B_s lost rank —
+    σ_{rank+1..b}(B_s) sit at the breakdown floor while σ_{1..rank} are
+    healthy.  QR of a rank-deficient residual orthonormalizes ROUNDING NOISE
+    into the dead columns, which the next application of A re-amplifies
+    into ghost eigenvalues.
+
+    Repair: rotate Q_old by B_s's left singular basis (_split_coupling) so
+    the honest residual directions land in the first ``rank`` columns —
+    exactly preserved, keeping T ≡ QᵀAQ — and replace the dead columns with
+    fresh randomness orthogonalized against everything
+    (_fresh_directions).  rank == 0 degenerates to full re-randomization
+    with a zero coupling, exactly the total-collapse treatment.  Returns
+    (Q_new, B_new host array)."""
     if rank == 0:
         Qnew = _fresh_directions(
             store, (Qprev,), lock_basis, gen,
@@ -483,11 +461,13 @@ def _repair_block(store, Qprev, Qold, B_s, rank, lock_basis, gen, qr_method,
         )
         return Qnew, np.zeros_like(B_s)
     Pf, B_new = _split_coupling(B_s, rank)
-    Qnew = _repair_partial_block(
-        store, Qprev, Qold, torch.as_tensor(Pf, device=Qold.device),
-        lock_basis, gen, r0=rank, qr_method=qr_method, mesh=mesh, n=n,
+    P = torch.as_tensor(Pf, device=Qold.device)
+    H = dot(Qold, P.to(Qold.dtype), _pet(Qold.dtype))[:, :rank]  # healthy part
+    Z = _fresh_directions(
+        store, (Qprev, H), lock_basis, gen,
+        (Qold.shape[0], Qold.shape[1] - rank), Qold.dtype, qr_method, mesh, n,
     )
-    return Qnew, B_new
+    return torch.cat([H, Z], dim=1), B_new
 
 
 def _rayleigh_refine(op: LinearOperator, X, theta0, cdt, width=None, mesh=None,
@@ -609,6 +589,21 @@ def lanczos_iteration(
     # below (T, the flags, the polls) is replicated bit for bit.
     mesh = cfg.mesh
 
+    def fresh():
+        """The block after Qprev re-randomized (_fresh_directions)."""
+        with timer.section("rerandomize"):
+            return _fresh_directions(
+                store, (Qprev,), lock_basis, gen, tuple(Qprev.shape),
+                Qprev.dtype, qr_method, mesh, n,
+            )
+
+    def repair(Qold, B_s, rank):
+        """The block after Qprev with its rank-``rank`` coupling block B_s
+        repaired (_repair_block): (Q_new, the honest B as a host array)."""
+        with timer.section("rerandomize"):
+            return _repair_block(store, Qprev, Qold, B_s, rank, lock_basis,
+                                 gen, qr_method, mesh, n)
+
     # the sweep's set-up: T, the first step and its read (or the resumed
     # state), the first coupling block's rank check
     with timer.section("solve_setup"):
@@ -637,9 +632,9 @@ def lanczos_iteration(
         else:
             # --- first iteration, unrolled ---
             with timer.section("recurrence"):
-                Qnext, Bnext, Ai = first_step_fn(op, Qi, cdt=cdt,
-                                                 qr_method=qr_method, mesh=mesh,
-                                                 timer=timer)
+                Qnext, Bnext, Ai = _step(op, Qi, None, None, cdt=cdt,
+                                         qr_method=qr_method, mesh=mesh,
+                                         timer=timer)
             AB0 = torch.stack([Ai, Bnext.to(Ai.dtype)]).cpu().numpy()  # one transfer
             T.append_diag(AB0[0])
             T.set_subdiag(AB0[1], 0)
@@ -739,17 +734,19 @@ def lanczos_iteration(
                 danger = True
             if sv0[-1] < thr0:
                 r0 = int(np.sum(sv0 >= thr0))  # may be 0: all σ at the floor
-                with timer.section("rerandomize"):
-                    Q2, B_new0 = _repair_block(
-                        store, Qprev, Qi, AB0[1], r0, lock_basis, gen, qr_method,
-                        mesh, n,
-                    )
+                Q2, B_new0 = repair(Qi, AB0[1], r0)
                 _dbg(f"partial breakdown at i=1: rank {r0}/{b} — repaired")
                 T.set_subdiag(B_new0, 0)
-                B_last = B_new0
-                B_hist[1] = B_new0
+                B_last = B_hist[1] = B_new0
                 dev_state = (Q2, Qprev, on_device(B_new0))
                 danger = True  # at an invariant subspace: every-step CGS2
+
+    def compounds(gamma, i_at, margin=3.0):
+        """Whether a ghost re-amplified ×``gamma`` per iteration, compounded
+        over the iterations left after ``i_at``, lifts eps-level rounding
+        above ~1% of scale (``margin``: the factor on that threshold)."""
+        return (gamma > 1.0 and
+                max(i_max - i_at, 0) * np.log(gamma) > margin * np.log(0.01 / eps))
 
     # chunks dispatched so far (drives geometric chunk growth)
     n_chunks = int(resume["n_chunks"]) if resume is not None else 0
@@ -800,85 +797,15 @@ def lanczos_iteration(
         with timer.section("sweep_dispatch"):
             store._ensure(store.ncols + S * b)
             col0 = store.ncols                  # global column
-            col = col0 - store.dev_base         # column in the device buffer
-            if store.host_ncols and any(reorth_pattern):
-                # Hybrid reorth, host tier (reference hybrid_part_reorth!,
-                # RBL_gpu.jl:59-81), re-designed for T-consistency: the
-                # offloaded panels re-enter the device and project EVERY
-                # full-scrub newborn residual U before its QR (a split
-                # step); runs of local-only steps between full scrubs go
-                # through _sweep_chunk.  One split step per window is NOT
-                # enough: leaks along offloaded dominant directions
-                # re-amplify by ~|λ|max/|λ|min per step, so a window's
-                # later full scrubs seeing only the device tier lose the
-                # basis.  The panels must never scrub the live pair
-                # (Qi, Qprev): those blocks' T couplings (A_{i-1}, B_i)
-                # are already recorded, and a retroactive edit makes
-                # T ≠ QᵀAQ by O(‖leak‖·‖A‖).
-                buf = store.buf
-                Qi_n, Qprev_n, Bi_n = dev_state
-                bdt_ = Qi_n.dtype
-                TBs = []
-                s = 0
-                while s < S:
-                    if reorth_pattern[s]:
-                        U, Ai0 = _split_step_recur(
-                            op, buf, Qi_n, Qprev_n, Bi_n, col, cdt=cdt,
-                            mesh=mesh, timer=timer,
-                        )
-                        # Panel-major, not pass-major: each host panel
-                        # crosses to the device once and is projected
-                        # npass times consecutively.  Pass-major (the
-                        # textbook BCGS2 sweep order) would either
-                        # re-transfer the whole host tier per pass or hold
-                        # every panel on the device at once — and the tier
-                        # exists precisely because device memory is full.
-                        # Reordering is safe because the panels are
-                        # mutually orthonormal to basis precision:
-                        # cross-panel re-injection from a later projection
-                        # is O(‖QᵢᵀQⱼ‖·eps·‖U‖), far below the CGS2 floor.
-                        stored = buf[:, : col + b]
-                        with timer.section("project"):
-                            for _ in range(npass):
-                                U = project_out(stored, U, mesh)
-                            for panel in store.stream_host_tier():
-                                for _ in range(npass):
-                                    U = project_out(panel, U, mesh)
-                            for _ in range(npass):
-                                U = project_out(Qi_n, U, mesh)
-                        Q1, B1 = _split_step_qr(
-                            U, lock_basis, qr_method=qr_method, bdt=bdt_,
-                            mesh=mesh, n=op.n, timer=timer,
-                        )
-                        TBs.append(torch.stack([Ai0, B1.to(Ai0.dtype)]))
-                        timer.add("basis_split_steps", 1)
-                        Qi_n, Qprev_n, Bi_n = Q1, Qi_n, B1
-                        col += b
-                        s += 1
-                    else:
-                        e = s
-                        while e < S and not reorth_pattern[e]:
-                            e += 1
-                        _, Qi_n, Qprev_n, Bi_n, TBseg = _sweep_chunk(
-                            op, buf, Qi_n, Qprev_n, Bi_n, col, lock_basis,
-                            cdt=cdt, qr_method=qr_method, nsteps=e - s,
-                            reorth_pattern=reorth_pattern[s:e],
-                            loc_passes=cfg.loc_reorth_passes,
-                            reorth_passes=npass, mesh=mesh, timer=timer,
-                        )
-                        TBs.append(TBseg)
-                        col += (e - s) * b
-                        s = e
-                TB = torch.cat(TBs, dim=0) if len(TBs) > 1 else TBs[0]
-            else:
-                _, Qi_n, Qprev_n, Bi_n, TB = _sweep_chunk(
-                    op, store.buf, dev_state[0], dev_state[1], dev_state[2],
-                    col, lock_basis,
-                    cdt=cdt, qr_method=qr_method, nsteps=S,
-                    reorth_pattern=reorth_pattern,
-                    loc_passes=cfg.loc_reorth_passes,
-                    reorth_passes=npass, mesh=mesh, timer=timer,
-                )
+            _, Qi_n, Qprev_n, Bi_n, TB = _sweep_chunk(
+                op, store.buf, *dev_state, col0 - store.dev_base, lock_basis,
+                cdt=cdt, qr_method=qr_method, nsteps=S,
+                reorth_pattern=reorth_pattern,
+                loc_passes=cfg.loc_reorth_passes,
+                reorth_passes=npass, mesh=mesh, timer=timer,
+                full_scrub=(functools.partial(_tiered_full_scrub, store, timer)
+                            if store.host_ncols else _full_scrub),
+            )
             copy = _start_host_copy(TB)
         store.ncols = col0 + S * b
         dev_state = (Qi_n, Qprev_n, Bi_n)
@@ -887,12 +814,39 @@ def lanczos_iteration(
                     Qi=Qi_n, Qprev=Qprev_n, Bi=Bi_n,
                     danger=danger or selective, stretch=pr_stretch)
 
-    def rewind_to(ncols_new):
-        """Discard basis columns beyond ncols_new (speculated, degenerate,
-        or post-convergence writes).  Tier-aware: with a host tier, a stale
-        convergence poll or a breakdown can target columns that were
-        already offloaded — BasisStore.rewind drops or trims panels."""
-        store.rewind(ncols_new)
+    def chunk_block(cur, s):
+        """The block that step s of chunk ``cur`` wrote to the store
+        (Q_{i0+s−1}), or past the chunk's end the blocks it left live:
+        ``cur["Qprev"]`` at s = S, ``cur["Qi"]`` at s = S + 1."""
+        if s < cur["S"]:
+            return store.read_block(cur["col0"] + s * b, b)
+        return cur["Qprev"] if s == cur["S"] else cur["Qi"]
+
+    def restart_at(nxt, regrow=False):
+        """Discard the sweep past iteration i (speculated chunks, a
+        degenerate tail, a stale policy): rewind the store to the invariant
+        "stored = Q_1..Q_{i−1}, Qprev = Q_i" (Qprev already holds Q_i) and
+        drop the in-flight chunks.  ``nxt()`` gives the (Q_{i+1}, B_{i+1})
+        the device recurrence restarts from (a host B is copied to the
+        device); it runs after the rewind, so a re-randomization sees only
+        the kept basis.  ``nxt`` None ends the sweep at i.  ``regrow``
+        restarts chunk growth from the base cadence.  Returns B_{i+1} as
+        ``nxt`` gave it."""
+        nonlocal dev_state, i_next, n_chunks
+        # tier-aware: a breakdown can target columns already offloaded
+        store.rewind((i - 1) * b)
+        B_new = None
+        if nxt is None:
+            i_next = i_max + 1  # terminal: no further dispatches
+        else:
+            Q_new, B_new = nxt()
+            dev_state = (Q_new, Qprev,
+                         B_new if torch.is_tensor(B_new) else on_device(B_new))
+            i_next = i + 1
+        inflight.clear()
+        if regrow:
+            n_chunks = 0
+        return B_new
 
     # Full eig factorizations run in a worker thread (LAPACK releases the
     # GIL), overlapped with the next chunk's transfer + screening + device
@@ -927,22 +881,15 @@ def lanczos_iteration(
         if pending["on_card"]:
             timer.add("eig_on_card", 1)
         if not selective and len(w_scr) > 1:
+            mx = abs(w_scr[-1])
+            gamma = mx / max(abs(w_scr[0]), np.finfo(np.float64).tiny)
             # Immediate tier: at extreme dominance the ghost of the top
             # pair reaches O(1) within ~10 iterations of its convergence —
             # waiting for two stable screens is already too late.  Trigger
             # on the first screen when the compounding margin is ≥ 3× the
             # threshold; a false positive merely costs extra reorth.
-            mx0 = abs(w_scr[-1])
-            g0 = mx0 / max(abs(w_scr[0]), np.finfo(np.float64).tiny)
-            rem0 = max(i_max - pending["i_poll"], 0)
-            if g0 > 1.0 and rem0 * np.log(g0) > 3.0 * np.log(0.01 / eps):
+            if compounds(gamma, pending["i_poll"]):
                 selective = True
-        if (
-            not selective
-            and w_old is not None
-            and len(w_old) == len(w_scr)
-            and len(w_scr) > 1
-        ):
             # Selective-orthogonalization trigger (Parlett–Scott flavored,
             # from Ritz VALUES alone).  Once the dominant Ritz value has
             # stabilized to its eps-level noise floor, its eigenvector is
@@ -951,14 +898,12 @@ def lanczos_iteration(
             # over the remaining sweep can lift eps-level rounding noise
             # above ~1% of scale, cadence-2 single-pass reorth loses the
             # basis.  Sticky: converged directions stay in the basis.
-            mx = abs(w_scr[-1])
-            if mx > 0 and abs(w_scr[-1] - w_old[-1]) <= 10.0 * eps * mx:
-                gamma = mx / max(abs(w_scr[0]), np.finfo(np.float64).tiny)
-                rem = max(i_max - pending["i_poll"], 0)
-                if gamma > 1.0 and rem * np.log(gamma) > np.log(0.01 / eps):
-                    selective = True
-                    _dbg(f"selective ON (stable-max) at poll panel "
-                         f"{pending['i_poll']}: gamma={gamma:.3g} rem={rem}")
+            elif (w_old is not None and len(w_old) == len(w_scr) and mx > 0
+                  and abs(w_scr[-1] - w_old[-1]) <= 10.0 * eps * mx
+                  and compounds(gamma, pending["i_poll"], margin=1.0)):
+                selective = True
+                _dbg(f"selective ON (stable-max) at poll panel "
+                     f"{pending['i_poll']}: gamma={gamma:.3g}")
         if full is not None:
             w_sel, V_sel = sort_eig_abs(full[0], full[1], k)
             bounds_now = ritz_residual_bounds(
@@ -982,7 +927,7 @@ def lanczos_iteration(
                     # mid-chunk poll: Q_{i_poll} lives in the basis store
                     # (read before the rewind truncates it away)
                     Qp = store.read_block((pending["i_poll"] - 1) * b, b)
-                rewind_to((pending["i_poll"] - 1) * b)
+                store.rewind((pending["i_poll"] - 1) * b)
                 Qprev = Qp
         pending = None
 
@@ -1005,7 +950,7 @@ def lanczos_iteration(
             with timer.section("transfer"):
                 TB = _finish_host_copy(cur["TB"])  # (2S, b, b): [A_s, B_s] pairs
             with timer.section("chunk_scan"):
-                i0, S, col0_abs = cur["i0"], cur["S"], cur["col0"]
+                i0, S = cur["i0"], cur["S"]
                 if not np.all(np.isfinite(TB)):
                     # numerical health check (SURVEY §5: the reference has no
                     # failure detection) — the T blocks cross to the host anyway
@@ -1055,7 +1000,7 @@ def lanczos_iteration(
                     if B_svals[-1] < rank_thr:
                         # PARTIAL rank collapse: the QR has already
                         # orthonormalized ghost noise into the dead columns (see
-                        # _repair_partial_block).  Steps after s consumed the
+                        # _repair_block).  Steps after s consumed the
                         # poisoned block.
                         partial_at = s
                         partial_rank = int(np.sum(B_svals >= rank_thr))
@@ -1073,7 +1018,7 @@ def lanczos_iteration(
                         # Truncate at the transition and resume in selective
                         # mode.
                         gp = tscale / max(a_s, np.finfo(np.float64).tiny)
-                        if (i_max - (i0 + s)) * np.log(gp) > 3.0 * np.log(0.01 / eps):
+                        if compounds(gp, i0 + s):
                             danger_at = s
                             selective = True
                             _dbg(
@@ -1106,119 +1051,62 @@ def lanczos_iteration(
                 B_last = (
                     TB[2 * (done - 1) + 1] if done >= 1 else np.asarray(B_hist[i])
                 )
-                Qprev = cur["Qprev"]
+                # Q_i: the chunk-end Qprev, or read back from the store before
+                # a handler below rewinds past a stop
+                Qprev = chunk_block(cur, done)
 
                 if explosion_at is not None:
                     # Precision exhaustion (see the scan): restore the invariant
                     # at the last valid iteration and either finish with the
                     # basis in hand or re-randomize and keep sweeping if the
                     # basis is still smaller than k.
-                    q_col = col0_abs + explosion_at * b  # Q_i, written at step s
-                    Qp = store.read_block(q_col, b)
-                    rewind_to((i - 1) * b)
-                    Qprev = Qp
-                    inflight.clear()
                     if i * b >= k:
                         _dbg(
                             f"precision exhaustion at i={i}: terminating sweep "
                             f"(‖B‖ exceeded 10·tscale={tscale:.3g})"
                         )
-                        i_next = i_max + 1  # terminal: no further dispatches
+                        restart_at(None)
                     else:
-                        with timer.section("rerandomize"):
-                            Qi_new = _fresh_directions(
-                                store, (Qprev,), lock_basis, gen,
-                                tuple(Qprev.shape), Qprev.dtype, qr_method,
-                                mesh, n,
-                            )
                         # the honest coupling to the re-randomized block is zero
-                        dev_state = (Qi_new, Qprev, torch.zeros_like(cur["Bi"]))
-                        i_next = i + 1
+                        restart_at(lambda: (fresh(), torch.zeros_like(cur["Bi"])))
 
                 if collapse_at is not None:
                     # Breakdown: an (almost) invariant subspace was hit — the
                     # reference has no handling for this (SURVEY §5).  Discard
-                    # the degenerate tail and the speculated chunk, restore the
-                    # invariant "stored = Q_1..Q_{i-1}, Qprev = Q_i", and
-                    # replace the dead block with fresh orthogonalized
-                    # randomness.  T keeps the honest (tiny) B out of its band.
-                    if collapse_at < S - 1:
-                        # Q_i sits at step s*+1's write; read it before rewinding
-                        qcol = col0_abs + (collapse_at + 1) * b
-                        Qprev = store.read_block(qcol, b)
-                    rewind_to((i - 1) * b)
-                    with timer.section("rerandomize"):
-                        Qi_new = _fresh_directions(
-                            store, (Qprev,), lock_basis, gen,
-                            tuple(Qprev.shape), Qprev.dtype, qr_method, mesh, n,
-                        )
-                    dev_state = (Qi_new, Qprev, on_device(B_last))
-                    i_next = i + 1
-                    inflight.clear()  # speculated chunks consumed garbage state
+                    # the degenerate tail and the speculated chunk, and replace
+                    # the dead block with fresh orthogonalized randomness.  T
+                    # keeps the honest (tiny) B out of its band.
+                    restart_at(lambda: (fresh(), B_last))
 
-                if partial_at is not None:
-                    # Partial rank collapse at iteration j = i: keep the healthy
+                if partial_at is not None or danger_at is not None:
+                    # Partial rank collapse at iteration i (keep the healthy
                     # singular directions of the coupling block exactly,
-                    # re-randomize the dead ones with zero coupling, and discard
-                    # the poisoned later steps.  See _repair_partial_block.
-                    s = partial_at
-                    q_col = col0_abs + (s + 1) * b
-                    Q_j = (
-                        store.read_block(q_col, b) if s + 1 <= S - 1 else cur["Qprev"]
-                    )
-                    if s == S - 1:
-                        Q_jp1 = cur["Qi"]
-                    elif s == S - 2:
-                        Q_jp1 = cur["Qprev"]
-                    else:
-                        Q_jp1 = store.read_block(q_col + b, b)
-                    rewind_to((i - 1) * b)
-                    Qprev = Q_j
-                    B_s = TB[2 * s + 1]
-                    with timer.section("rerandomize"):
-                        Qnew, B_new = _repair_block(
-                            store, Qprev, Q_jp1, B_s, partial_rank, lock_basis,
-                            gen, qr_method, mesh, n,
+                    # re-randomize the dead ones with zero coupling; see
+                    # _repair_block), or a mid-chunk danger onset (see the
+                    # scan): discard the later steps of this chunk, which
+                    # consumed the poisoned block or ran under the stale calm
+                    # policy, and the speculated chunks, and resume at i with
+                    # every-step CGS2 reorth.  Q_{i+1} was written to the basis
+                    # by a discarded later step (or is the chunk-end Qprev).
+                    Q_ip1 = chunk_block(cur, done + 1)
+                    if partial_at is not None:
+                        B_last = B_hist[i] = restart_at(
+                            lambda: repair(Q_ip1, TB[2 * partial_at + 1], partial_rank),
+                            regrow=True,
                         )
-                    _dbg(
-                        f"partial breakdown at i={i}: rank {partial_rank}/{b} "
-                        f"(σ_min={B_svals[-1]:.3g}) — repaired"
-                    )
-                    B_last = B_new
-                    B_hist[i] = B_new
-                    dev_state = (Qnew, Qprev, on_device(B_new))
-                    i_next = i + 1
-                    inflight.clear()  # speculated chunks consumed the poisoned block
+                        _dbg(
+                            f"partial breakdown at i={i}: rank {partial_rank}/{b} "
+                            f"(σ_min={B_svals[-1]:.3g}) — repaired"
+                        )
+                    else:
+                        restart_at(lambda: (Q_ip1, B_last), regrow=True)
                     # A rank-deficient residual means the sweep is AT an
-                    # invariant subspace: the repaired random directions
-                    # re-excite converged eigendirections through A.
-                    # Every-step CGS2 until the spectrum calms.
+                    # invariant subspace, where the repaired random directions
+                    # re-excite converged eigendirections through A; a danger
+                    # onset is the ghost regime.  Every-step CGS2 until the
+                    # spectrum calms.
                     danger = True
                     calm_chunks = 0
-                    n_chunks = 0
-
-                if danger_at is not None:
-                    # Mid-chunk danger onset (see the scan above): discard the
-                    # calm-policy tail of this chunk and the speculated one,
-                    # restore the state invariant at iteration
-                    # i = i0 + danger_at, and resume with every-step CGS2
-                    # reorth.  Q_i and Q_{i+1} were written to the basis by the
-                    # (discarded) later steps, so they are read back before the
-                    # rewind; B_{i+1} is TB's entry for the onset step.
-                    q_col = col0_abs + (danger_at + 1) * b
-                    Q_i = store.read_block(q_col, b)
-                    if danger_at + 2 <= S - 1:
-                        Q_ip1 = store.read_block(q_col + b, b)
-                    else:  # danger_at == S-2: Q_{i+1} is the chunk-end Qprev
-                        Q_ip1 = cur["Qprev"]
-                    rewind_to((i - 1) * b)
-                    Qprev = Q_i
-                    dev_state = (Q_ip1, Q_i, on_device(B_last))
-                    i_next = i + 1
-                    danger = True
-                    calm_chunks = 0
-                    n_chunks = 0  # restart chunk growth from the base cadence
-                    inflight.clear()  # speculated chunks ran under the stale calm policy
 
                 # danger-mode hysteresis: enter every-step CGS2 reorth while any
                 # ‖B_s‖ sits below 1e-2·tscale (ghost re-amplification regime);
@@ -1255,18 +1143,15 @@ def lanczos_iteration(
                         danger = False
                 else:
                     calm_chunks = 0
-                if not selective and chunk_scale > 0 and tscale > chunk_scale:
+                if not selective and chunk_scale > 0 and compounds(tscale / chunk_scale, i):
                     # Chunk-stats selective trigger (no poll needed): once the
                     # sweep's ACTIVE Rayleigh scale has dropped below the
                     # historical tscale, converged dominant directions exist and
                     # their ghosts re-amplify by ≈ tscale/active per iteration.
                     # 3× margin like the immediate poll tier.
-                    gp = tscale / chunk_scale
-                    rem_i = max(i_max - i, 0)
-                    if rem_i * np.log(gp) > 3.0 * np.log(0.01 / eps):
-                        selective = True
-                        _dbg(f"selective ON (chunk-stats) at i={i}: "
-                             f"gamma≈{gp:.3g} rem={rem_i}")
+                    selective = True
+                    _dbg(f"selective ON (chunk-stats) at i={i}: "
+                         f"gamma≈{tscale / chunk_scale:.3g}")
                 if cfg.adaptive_reorth_max > 1:
                     # Adaptive full-scrub stretch: double the interval per calm
                     # chunk; snap back to base on ANY risk signal.
@@ -1281,21 +1166,12 @@ def lanczos_iteration(
                         min(pr_stretch * 2, cfg.adaptive_reorth_max)
                         if calm_for_stretch else 1
                     )
-                if inflight and inflight[0]["danger"] != (danger or selective):
-                    rewind_to((i - 1) * b)
-                    dev_state = (cur["Qi"], cur["Qprev"], cur["Bi"])
-                    i_next = i + 1
-                    n_chunks = 0  # restart chunk growth from the base cadence
-                    inflight.clear()
-                elif inflight and inflight[0]["stretch"] > pr_stretch:
-                    # a speculated chunk dispatched under a STRETCHED cadence
-                    # after the policy snapped back would run with fewer scrubs
-                    # than the risk now demands — discard it
-                    rewind_to((i - 1) * b)
-                    dev_state = (cur["Qi"], cur["Qprev"], cur["Bi"])
-                    i_next = i + 1
-                    n_chunks = 0
-                    inflight.clear()
+                if inflight and (inflight[0]["danger"] != (danger or selective)
+                                 or inflight[0]["stretch"] > pr_stretch):
+                    # a speculated chunk dispatched under the other policy, or
+                    # under a STRETCHED cadence after the stretch snapped back
+                    # (fewer scrubs than the risk now demands) — discard it
+                    restart_at(lambda: (cur["Qi"], cur["Bi"]), regrow=True)
 
                 # Convergence polls (reference cadence RBL.jl:106; immediately
                 # on breakdown — the Krylov space is nearly invariant then).

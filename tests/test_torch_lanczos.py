@@ -6,6 +6,9 @@ produce the same T blocks to 1e-11 relative: cholqr2's R has a positive
 diagonal, so the factors are unique and only the order of sums differs.
 """
 
+import functools
+from types import SimpleNamespace
+
 import numpy as np
 import pytest
 import torch
@@ -18,6 +21,7 @@ from _torch_parity import CPU, rel_err
 from rbl_tpu.solver import lanczos as jl
 from rbl_tpu_torch.solver import lanczos as tl
 from rbl_tpu_torch.solver.basis import BasisStore
+from rbl_tpu_torch.utils.profiling import Timer
 
 TOL = 1e-11
 N, B = 600, 4
@@ -66,18 +70,61 @@ def test_sweep_chunk_tb_parity(with_lock):
     np.testing.assert_array_equal(tbuf.numpy()[:, 12 + 4 * B :], 0.0)
 
 
-def test_first_and_recurrence_steps_match_jax():
-    M, basis, Qprev, Qi, Bi, _ = _state(seed=1)
+@pytest.mark.parametrize("case", ["first", "recurrence", "full_scrub",
+                                  "local_scrub", "lock", "tiered_full_scrub"])
+def test_first_and_recurrence_steps_match_jax(case):
+    """The port's one step against the JAX package's: its first and
+    recurrence steps, one step of its fused chunk (a full scrub, a local
+    scrub, a full scrub with a lock set), and its host-tier split step
+    (_split_step_recur, the projections, _split_step_qr) with two host
+    panels."""
+    M, basis, Qprev, Qi, Bi, lock = _state(seed=1)
     jop, top = rbl_tpu.DenseOperator(jnp.asarray(M)), rtt.DenseOperator(_t(M))
-    a = jl.first_step_fn(jop, jnp.asarray(Qi), jnp.float64, "cholqr2")
-    b = tl.first_step_fn(top, _t(Qi), torch.float64, "cholqr2")
-    for x, y in zip(a, b):
-        assert rel_err(y.numpy(), np.asarray(x)) < TOL
-    a = jl.recurrence_step_fn(jop, jnp.asarray(Qi), jnp.asarray(Qprev),
-                              jnp.asarray(Bi), jnp.float64, "cholqr2")
-    b = tl.recurrence_step_fn(top, _t(Qi), _t(Qprev), _t(Bi), torch.float64,
-                              "cholqr2")
-    for x, y in zip(a, b):
+    jQi, jQprev, jBi = jnp.asarray(Qi), jnp.asarray(Qprev), jnp.asarray(Bi)
+    kw = dict(cdt=torch.float64, qr_method="cholqr2")
+    if case == "first":
+        want = jl.first_step_fn(jop, jQi, jnp.float64, "cholqr2")
+        got = tl._step(top, _t(Qi), None, None, **kw)
+    elif case == "recurrence":
+        want = jl.recurrence_step_fn(jop, jQi, jQprev, jBi, jnp.float64, "cholqr2")
+        got = tl._step(top, _t(Qi), _t(Qprev), _t(Bi), **kw)
+    elif case == "tiered_full_scrub":
+        # the stored columns 0..7 as two host panels, 8..11 on the device
+        # with Q_{i-1} archived behind them; two passes, as in danger mode
+        panels = [basis[:, :4], basis[:, 4:8]]
+        buf = np.zeros_like(basis)
+        buf[:, :4] = basis[:, 8:12]
+        jbuf, U, Ai = jl._split_step_recur(jop, jnp.asarray(buf), jQi, jQprev, jBi,
+                                           jnp.int32(4), cdt=jnp.float64)
+        for blk in [jbuf] + [jnp.asarray(p) for p in panels] + [jQi]:
+            for _ in range(2):
+                U = jl._project_out_jit(blk, U)
+        want = jl._split_step_qr(U, None, qr_method="cholqr2", bdt=jnp.float64) + (Ai,)
+        tbuf = _t(buf)
+        tbuf[:, 4:8] = _t(Qprev)
+        timer = Timer()
+        tier = SimpleNamespace(stream_host_tier=lambda: iter(map(_t, panels)))
+        scrub = functools.partial(tl._tiered_full_scrub, tier, timer, tbuf[:, :8],
+                                  passes=2, mesh=None)
+        got = tl._step(top, _t(Qi), _t(Qprev), _t(Bi), scrub=scrub, **kw)
+        assert timer.counters["basis_split_steps"] == 1
+    else:
+        full = case != "local_scrub"
+        lk = lock if case == "lock" else None
+        jout = jl._sweep_chunk(
+            jop, jnp.asarray(basis), jQi, jQprev, jBi, jnp.int32(12),
+            None if lk is None else jnp.asarray(lk), cdt=jnp.float64,
+            qr_method="cholqr2", nsteps=1, reorth_pattern=(full,), loc_passes=2,
+            reorth_passes=1,
+        )
+        want = (jout[1], jout[4][1], jout[4][0])
+        tbuf = _t(basis)
+        tbuf[:, 12:16] = _t(Qprev)
+        scrub = (functools.partial(tl._full_scrub, tbuf[:, :16], passes=1, mesh=None)
+                 if full else functools.partial(tl._local_scrub, passes=2, mesh=None))
+        got = tl._step(top, _t(Qi), _t(Qprev), _t(Bi), scrub=scrub,
+                       lock_basis=None if lk is None else _t(lk), **kw)
+    for x, y in zip(want, got):
         assert rel_err(y.numpy(), np.asarray(x)) < TOL
 
 

@@ -141,20 +141,6 @@ def test_project_out_zero_padding_is_inert():
     assert rel_err(got, want) < TOL
 
 
-def test_partial_and_local_reorth_match_jax():
-    basis = np.linalg.qr(_rand((4000, 16), 10))[0]
-    Qi, Qprev = _rand((4000, 4), 11), np.linalg.qr(_rand((4000, 4), 12))[0]
-    a = jreorth.partial_reorth(jnp.asarray(basis), jnp.asarray(Qi),
-                               jnp.asarray(Qprev), qr_method="cholqr2", passes=2)
-    b = treorth.partial_reorth(_t(basis), _t(Qi), _t(Qprev),
-                               qr_method="cholqr2", passes=2)
-    for x, y in zip(a, b):
-        assert rel_err(y.numpy(), np.asarray(x)) < TOL
-    want = jreorth.local_reorth(jnp.asarray(Qi), jnp.asarray(Qprev), qr_method="cholqr2")
-    got = treorth.local_reorth(_t(Qi), _t(Qprev), qr_method="cholqr2")
-    assert rel_err(got.numpy(), np.asarray(want)) < TOL
-
-
 def _random_band(b=4, panels=30, seed=13):
     rng = np.random.default_rng(seed)
     Tj = jband.BlockTridiagonalT(b, max_cols=panels * b + b)

@@ -8,6 +8,8 @@ Random start blocks differ between the packages (torch.Generator versus
 jax.random), so solves compare eigenvalues and residuals, not vectors.
 """
 
+import concurrent.futures
+import dataclasses
 import subprocess
 import sys
 
@@ -108,6 +110,142 @@ def test_hard_spectra_take_the_repair_paths(case, monkeypatch):
     assert res.converged
     if case == "rank5":
         assert repairs  # the coupling block lost rank and was repaired
+
+
+@dataclasses.dataclass
+class _ExplodingDiagonal(rtt.DiagonalOperator):
+    """diag(d) whose ``at``-th apply adds 1e8 times a random block
+    orthogonal to its input: the Gram A_i stays honest while ‖B_{i+1}‖
+    jumps past the sweep's 10·‖A‖ guard, the signature of a dtype whose
+    floor crossed the active scale."""
+
+    at: int = 0
+    calls: list = dataclasses.field(default_factory=list)
+
+    def apply(self, X):
+        Y = self.diag[:, None] * X
+        self.calls.append(X.shape[1])
+        if len(self.calls) == self.at:
+            R = torch.randn(X.shape, dtype=X.dtype,
+                            generator=torch.Generator().manual_seed(7))
+            Y = Y + 1e8 * (R - X @ (X.T @ R))
+        return Y
+
+
+class _InlineExecutor:
+    """The eig worker run inline: a poll is done when it is submitted, so
+    the harvest's wall-clock race cannot move the branches a test pins."""
+
+    def __init__(self, *args, **kwargs):
+        pass
+
+    def submit(self, fn, *args, **kwargs):
+        done = concurrent.futures.Future()
+        done.set_result(fn(*args, **kwargs))
+        return done
+
+    def shutdown(self, wait=True):
+        pass
+
+
+def _driver_state(kind, out):
+    """Record, at a call made inside ``lanczos_iteration``, which of the
+    sweep's handlers is running: the scan's stop markers, the chunk length,
+    the policy flags and the first in-flight chunk's, and whether the call
+    came through the eig harvest."""
+    f = sys._getframe(2)
+    via = []
+    while f is not None and f.f_code.co_name != "lanczos_iteration":
+        via.append(f.f_code.co_name)
+        f = f.f_back
+    loc = {} if f is None else f.f_locals
+    inflight = loc.get("inflight")
+    head = dict(inflight[0]) if inflight else None
+    out.append(dict(
+        kind=kind, via=via, head=head,
+        **{x: loc.get(x) for x in ("explosion_at", "partial_at", "S", "i",
+                                   "pr_stretch", "danger", "selective")},
+    ))
+
+
+def _spread(D, n=300):
+    """D distinct positive eigenvalues and n − D zeros: the start block
+    qr(A·Ω) lies in the D-dimensional range, so the Krylov space is
+    exhausted at D columns and the coupling block of iteration D // 4
+    (b = 4) keeps D mod 4 directions."""
+    d = np.zeros(n)
+    d[:D] = np.arange(D, 0, -1) * np.linspace(2.0, 1.0, D)
+    return d
+
+
+@pytest.mark.parametrize("case", [
+    "explosion_rerandomize", "explosion_terminal",
+    "partial_last_step", "partial_second_last_step", "stretch_flip",
+])
+def test_breakdown_branches_of_the_chunk_scan(case, monkeypatch):
+    """The chunk scan's rarer handlers, each reached by a chosen input:
+    the explosion guard re-randomizing (i·b < k) and ending the sweep
+    (i·b ≥ k), the partial repair at the chunk's last and second-to-last
+    step, and the discard of a chunk dispatched under a stretched scrub
+    cadence after the stretch snapped back.  Each asserts that its handler
+    ran and that the answer matches the truth."""
+    from rbl_tpu_torch.solver import lanczos
+    from rbl_tpu_torch.solver.basis import BasisStore
+
+    monkeypatch.setattr(lanczos.concurrent.futures, "ThreadPoolExecutor",
+                        _InlineExecutor)
+    seen = []
+    for mod, name in ((lanczos, "_fresh_directions"), (lanczos, "_repair_block"),
+                      (BasisStore, "rewind")):
+        real = getattr(mod, name)
+        monkeypatch.setattr(mod, name, lambda *a, _r=real, _n=name, **kw:
+                            _driver_state(_n, seen) or _r(*a, **kw))
+    cfg = dict(block_size=4, device=CPU)
+    k = 8
+    if case == "explosion_rerandomize":
+        # four nonzero eigenvalues: Q₁ spans them, the first coupling block
+        # is repaired to zero, and the explosion at iteration 2 (apply 3)
+        # leaves i·b = 4 < k
+        d = np.zeros(300)
+        d[:4] = [4.0, 3.0, 2.0, 1.0]
+        op = _ExplodingDiagonal(torch.from_numpy(d), at=3)
+    elif case == "explosion_terminal":
+        d = np.concatenate([[100.0, 80.0, 60.0, 50.0], np.linspace(0.0, 10.0, 296)])
+        op = _ExplodingDiagonal(torch.from_numpy(d), at=8)  # iteration 7
+        k, cfg["max_kryl_dim"] = 4, 64
+    elif case.startswith("partial"):
+        # iteration j = D // 4 sits at step j − 2 of the first 4-step chunk
+        d = _spread(21 if case == "partial_last_step" else 17)
+        op = rtt.DiagonalOperator(torch.from_numpy(d))
+    else:
+        d = np.random.default_rng(0).uniform(0.0, 1.0, 1000)
+        op = rtt.DiagonalOperator(torch.from_numpy(d))
+        k, cfg["adaptive_reorth_max"] = 4, 4
+    res = rtt.rbl(op, k, cfg=rtt.RBLConfig(**cfg))
+    want = d[np.argsort(-np.abs(d), kind="stable")][:k]
+    assert np.abs(res.eigenvalues - want).max() < 1e-10 * np.abs(want).max()
+
+    if case == "explosion_rerandomize":
+        assert res.converged
+        assert any(s["kind"] == "_fresh_directions" and s["explosion_at"] is not None
+                   and "_repair_block" not in s["via"] for s in seen)
+    elif case == "explosion_terminal":
+        ends = [s for s in seen if s["explosion_at"] is not None]
+        assert ends and all(s["kind"] == "rewind" for s in ends)
+        assert ends[0]["i"] * 4 >= k and res.iterations == ends[0]["i"]
+    elif case.startswith("partial"):
+        assert res.converged
+        step = {"partial_last_step": 1, "partial_second_last_step": 2}[case]
+        repairs = [s for s in seen if s["kind"] == "_repair_block"]
+        assert repairs and repairs[0]["partial_at"] == repairs[0]["S"] - step
+    else:
+        assert res.converged
+        assert any(
+            s["kind"] == "rewind" and "harvest" not in s["via"] and s["head"]
+            and s["head"]["stretch"] > s["pr_stretch"]
+            and s["head"]["danger"] == (s["danger"] or s["selective"])
+            for s in seen
+        )
 
 
 def test_eigenvalues_match_jax_rbl():
