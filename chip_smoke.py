@@ -241,6 +241,19 @@ a user calls, and checks the answers:
      against its plain version on the same inputs and bitwise equal on a
      second call, timed (L2 flushed) beside the plain version, one
      torch.matmul and the byte bound.
+ 30. (run right after phase 29) the stencil kernel K3 (csrc/stencil.cu,
+     ``ops/spmm/stencil.py`` ``step``) on the 512² grid: the plain apply
+     A·Y (f32 b = 16, f64 b = 8: the bits of ``_plain_apply``; bf16 b = 16
+     within 4 ulps of |A|·|Y|) and the product filter's step (f32 and f64,
+     b = 48 and 90, one column's previous sum 0: within 8 ulps of
+     (|A|·|Y| + |r||Y|)·s of ``LinearOperator.filter_step`` on the plain
+     apply, the sums within 64 ulps of Σ Z²); each bitwise equal on a
+     second call and timed (L2 flushed) beside the plain version, a filter
+     step also beside the torch loop it replaced, and the byte bound (Y
+     read and Z written once).  Then ``rbl_polished`` on the 256² stencil
+     (k = 20, b = 8, f64, tol 1e-7) with K3's launches counted from 0: at
+     least one a fused filter step, the eigenvalues within 1e-10 of the
+     analytic spectrum.
 
 Phases 11-14, 17, 19, 20 and 22 launch B1/B2 through BlockSparseOperator.apply.
 Phase 14's fem42 polish applies A to k + buffer + random columns at once
@@ -254,9 +267,10 @@ both B1 (its f32 coarse sweep) and B2, phase 19 one of them, phase 23
 B2 (one rank) and B1 (each of two ranks), and phase 24 both B1 (the
 replicated levels) and B2 (fem47's K) on one rank and B1 on two
 (``launches_by_phase["24 (2 ranks)"]``), phases 25 and 27 B1, and
-phase 28 B1, B2 and B4; K1's and K2's ``launches`` are those of phases
-4-5, counted from zero there, and each counted phase's own are in their
-``launches_by_phase``.  After
+phase 28 B1, B2 and B4; K1's, K2's and K3's ``launches`` are those of
+phases 4-5 (phase 4's stencil applies for K3), counted from zero there,
+and each counted phase's own are in their ``launches_by_phase`` (phase 16
+must launch K3, and phase 30 holds its polish's count).  After
 phase 17 each BSR level's product is also timed through torch.sparse CSR
 (the level's nonzeros), and after phase 14 both entry points are timed at
 90 columns too.  The last two lines are the kernels' JSON
@@ -299,6 +313,10 @@ KERNELS = {
                     "none: XLA's dot (rbl_tpu/ops/contract.py gram)"),
     "update_kernel": ("rbl_tpu_torch/csrc/skinny.cu",
                       "none: XLA's dot (rbl_tpu/ops/reorth.py project_out)"),
+    "stencil_kernel": ("rbl_tpu_torch/csrc/stencil.cu",
+                       "none: XLA's fusion (rbl_tpu/ops/spmm/operator.py:341 "
+                       "Laplacian2D.apply, rbl_tpu/ops/chebyshev.py:220 the "
+                       "product filter's step)"),
 }
 # the skinny kernels' Python wrappers, by kernel (their launch counters)
 SKINNY = {"gram_kernel": "gram", "update_kernel": "update"}
@@ -2970,6 +2988,135 @@ def phase_skinny(kernels: dict, card: str) -> None:
     torch.cuda.empty_cache()
 
 
+# phase 30's shapes: (label, columns, dtype, a filter step): the applies of
+# lap2d k50's sweep (f32 16), of the polish's Rayleigh-Ritz (f64 8) and of
+# the bf16 control (16); the steps of the polish's f32 and f64 chains
+STENCIL_SHAPES = (
+    ("k50 sweep apply", 16, "float32", False),
+    ("polish RR apply", 8, "float64", False),
+    ("bf16 control apply", 16, "bfloat16", False),
+    ("polish f32 step", 48, "float32", True),
+    ("polish f32 step", 90, "float32", True),
+    ("polish f64 step", 48, "float64", True),
+    ("polish f64 step", 90, "float64", True),
+)
+STENCIL_MAIN = "k50 sweep apply"  # the shape of the kernel's top-level row
+
+
+def phase_stencil(kernels: dict, card: str, nx: int = 512) -> int:
+    """Phase 30: K3 at ``STENCIL_SHAPES`` on the nx² grid against its plain
+    versions (module docstring), bitwise equal on a second call, timed
+    (CUDA events, median of 20 single calls, the L2 flushed before each)
+    beside the plain version, the torch loop of a filter step and the byte
+    bound; rows in ``kernels["stencil_kernel"]``.  Then a polish on the
+    256² stencil with K3's launches counted from 0.  Returns them."""
+    import torch
+
+    import rbl_tpu_torch as rt
+    from rbl_tpu_torch.ops.spmm import stencil
+    from rbl_tpu_torch.ops.spmm.operator import LinearOperator
+    from rbl_tpu_torch.parallel.mesh import col_sumsq
+    from rbl_tpu_torch.utils.profiling import Timer
+
+    class Plain(LinearOperator):
+        """The plain apply, with LinearOperator's plain filter step."""
+
+        def apply(self, X):
+            return stencil._plain_apply(X, nx, nx)
+
+    eps = {torch.bfloat16: 2.0 ** -8, torch.float32: 2.0 ** -24,
+           torch.float64: 2.0 ** -53}
+    flush = torch.empty(64 << 20, dtype=torch.int32, device="cuda")
+    n = nx * nx
+    for label, b, dt, is_step in STENCIL_SHAPES:
+        dtype = getattr(torch, dt)
+        acc = torch.float64 if dtype == torch.float64 else torch.float32
+        g = torch.Generator(device="cuda").manual_seed(b)
+        Y = torch.randn((n, b), generator=g, dtype=torch.float64, device="cuda").to(dtype)
+        Yd = Y.to(torch.float64).abs()
+        absA = 8 * Yd - stencil._plain_apply(Yd, nx, nx)  # |A|·|Y|
+        if is_step:
+            r = torch.tensor(2.75, dtype=dtype, device="cuda")
+            S_in = torch.sum(Y.to(acc) ** 2, dim=0) * 0.5
+            S_in[3] = 0
+            s = torch.where(S_in > 0, 1 / torch.sqrt(S_in), torch.ones_like(S_in))
+            call = lambda: stencil.step(Y, nx, nx, r, S_in, sumsq=True)
+            plain = lambda: Plain().filter_step(Y, r, S_in)
+
+            def loop():  # the filter's step before K3, op for op
+                Z = stencil._plain_apply(Y, nx, nx) - r * Y
+                nrm = torch.sqrt(col_sumsq(Z, None))
+                return Z / torch.where(nrm > 0, nrm, torch.ones_like(nrm))
+
+            Z, S = call()
+            Z2, S2 = call()
+            want = Plain().filter_step(Y.to(acc), r.to(acc), S_in)[0]
+            scale = (absA + 2.75 * Yd) * s.to(torch.float64)[None, :]
+            err = float(((Z.to(torch.float64) - want.to(torch.float64)).abs()
+                         / scale.clamp_min(1e-300)).max())
+            sums = torch.sum(Z.to(torch.float64) ** 2, dim=0)
+            err_s = float(((S.to(torch.float64) - sums).abs() / sums.clamp_min(1e-300)).max())
+            ok = err < 8 * eps[dtype] and err_s < 64 * eps[acc]
+            same = torch.equal(Z, Z2) and torch.equal(S, S2)
+        else:
+            call = lambda: stencil.step(Y, nx, nx)[0]
+            plain = lambda: stencil._plain_apply(Y, nx, nx)
+            loop = None
+            Z, Z2, want = call(), call(), plain()
+            err = float(((Z.to(torch.float64) - want.to(torch.float64)).abs()
+                         / absA.clamp_min(1e-300)).max())
+            err_s = None
+            ok = (err < 4 * eps[dtype] if dtype == torch.bfloat16
+                  else torch.equal(Z, want))
+            same = torch.equal(Z, Z2)
+        shape = f"{label}: {nx}² grid, b {b}, {dt}"
+        if not (ok and same):
+            raise AssertionError(f"stencil_kernel {shape}: rel err {err:.3e}, sums "
+                                 f"{err_s}, two calls equal {same}")
+        row = dict(max_rel_err=err, ms=time_ms(call, flush=flush),
+                   plain_ms=time_ms(plain, flush=flush),
+                   **bound(2 * n * b * Y.element_size(), 9 * n * b))
+        if loop is not None:
+            row["loop_ms"] = time_ms(loop, flush=flush)
+        entry = kernels.setdefault("stencil_kernel", {})
+        entry.setdefault("path_shapes", []).append(dict(phase=30, shape=shape, **row))
+        if label == STENCIL_MAIN:
+            entry.update(shape=shape, **row)
+        print(f"stencil_kernel {shape}: rel err {err:.2e}"
+              + ("" if err_s is None else f", sums {err_s:.2e}")
+              + f", kernel {row['ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
+              f"({row['bound_ms'] / row['ms']:.0%}), plain {row['plain_ms']:.4f} ms"
+              + ("" if loop is None else f", torch loop {row['loop_ms']:.4f} ms")
+              + f"  [{card}]")
+        del Y, Yd, absA, Z, Z2, want
+    del flush
+    torch.cuda.empty_cache()
+    # the polish path, K3's launches from 0
+    pn, k = 256, 20
+    cfg = rt.RBLConfig(block_size=8, compute_dtype=torch.float64,
+                       basis_dtype=torch.float64, qr_method="cholqr2", tol=1e-7,
+                       eig_poll_cadence=16, device="cuda")
+    op = rt.Laplacian2D(pn, pn, dtype=torch.float64, device="cuda")
+    timer = Timer()
+    stencil.step.launches = 0
+    t0 = time.perf_counter()
+    res = rt.rbl_polished(op, k, cfg=cfg, b=8, bounds=(0.0, None), timer=timer)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = stencil.step.launches
+    fused = timer.counters["filter_fused_steps"]
+    lam = laplacian_spectrum(pn)[::-1][:k]
+    err = float(np.max(np.abs(np.asarray(res.eigenvalues) - lam)))
+    if not (res.converged and fused > 0 and launches >= fused and err < 1e-10):
+        raise AssertionError(f"30 polish {pn}²: converged {res.converged}, fused "
+                             f"steps {fused}, K3 launches {launches}, eigenvalue "
+                             f"error {err:.3e}")
+    print(f"30 rbl_polished {pn}² k={k} b=8 f64 tol 1e-7: wall {wall:.3f} s, "
+          f"fused filter steps {fused}, K3 launches {launches}, max eigenvalue "
+          f"error {err:.2e} against the analytic spectrum  [{card}]")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -2984,7 +3131,7 @@ def main() -> int:
     import rbl_tpu_torch as rt
     from rbl_tpu_torch.benchmarks import dma_stream_bench as tds
     from rbl_tpu_torch.ops import contract
-    from rbl_tpu_torch.ops.spmm import _kernels, bsr
+    from rbl_tpu_torch.ops.spmm import _kernels, bsr, stencil
     from rbl_tpu_torch.utils.fem import fem_elasticity_3d
 
     torch.set_float32_matmul_precision("highest")  # plain versions in full FP32
@@ -2997,6 +3144,8 @@ def main() -> int:
     every = (*packed, bsr.bsr_spmm, bsr.bsr_spmm_panel)
     probes = (tds.dma_stream, tds.dma_stream_dot, tds.dma_stream_manual)
     skinny = {name: getattr(contract, fn) for name, fn in SKINNY.items()}
+    # every wrapper whose launches a phase reads, by kernel
+    counted = {**skinny, "stencil_kernel": stencil.step}
 
     # --- 2. build -----------------------------------------------------------
     t0 = time.perf_counter()
@@ -3042,7 +3191,7 @@ def main() -> int:
 
     # --- 4./5. the main path ------------------------------------------------
     head = np.load(GROUNDTRUTH)["eigenvalues"][:90]
-    reset_launches(*every, *skinny.values())
+    reset_launches(*every, *counted.values())
     t_main = time.perf_counter()
     lap = rt.Laplacian2D(512, 512, dtype=torch.float32, device="cuda")
     cfg = rt.RBLConfig(block_size=16, basis_dtype=torch.bfloat16,
@@ -3069,11 +3218,11 @@ def main() -> int:
               f"{bsr.bsr_spmm_packed_resident.launches} streaming="
               f"{bsr.bsr_spmm_packed.launches}  [{card}]")
     launches = {f.__name__: f.launches for f in every}
-    launches.update({name: f.launches for name, f in skinny.items()})
+    launches.update({name: f.launches for name, f in counted.items()})
     by_phase = {name: {} for name in KERNELS}
-    print(f"main path: {time.perf_counter() - t_main:.1f} s, skinny launches "
-          f"{ {name: launches[name] for name in skinny} }")
-    for name in (*(f.__name__ for f in packed), *skinny):
+    print(f"main path: {time.perf_counter() - t_main:.1f} s, skinny and stencil "
+          f"launches { {name: launches[name] for name in counted} }")
+    for name in (*(f.__name__ for f in packed), *counted):
         by_phase[name]["4-5"] = launches[name]
         if launches[name] < 1:
             raise AssertionError(f"main path never launched {name}")
@@ -3083,9 +3232,14 @@ def main() -> int:
     phase_skinny(kernels, card)
     print(f"phase 29: {time.perf_counter() - t29:.1f} s")
 
+    # --- 30. the stencil kernel at the cells' shapes, and a polish on it --
+    t30 = time.perf_counter()
+    by_phase["stencil_kernel"]["30"] = phase_stencil(kernels, card)
+    print(f"phase 30: {time.perf_counter() - t30:.1f} s")
+
     # --- 11.-14. the long-solve paths, each read on its own ------------------
     def long_phase(number, must_launch, fn, *args, fns=packed):
-        reset_launches(*every, *skinny.values())
+        reset_launches(*every, *counted.values())
         t0 = time.perf_counter()
         out = fn(*args)
         counts = {f.__name__: f.launches for f in fns}
@@ -3094,10 +3248,10 @@ def main() -> int:
                 raise AssertionError(f"phase {number} never launched {f.__name__}")
         for name, c in counts.items():
             by_phase[name][str(number)] = c
-        for name, f in skinny.items():
+        for name, f in counted.items():
             by_phase[name][str(number)] = f.launches
         print(f"phase {number}: {time.perf_counter() - t0:.1f} s, launches {counts}, "
-              f"skinny { {name: f.launches for name, f in skinny.items()} }")
+              f"skinny and stencil { {name: f.launches for name, f in counted.items()} }")
         return out
 
     B1, B2 = packed
@@ -3397,10 +3551,10 @@ def main() -> int:
     phase_svd(card)
     print(f"phase 15: {time.perf_counter() - t15:.1f} s")
 
-    # --- 16. shift-invert on the 512² stencil (no kernel of the table) -----
-    t16 = time.perf_counter()
-    phase_stencil_shift_invert(card)
-    print(f"phase 16: {time.perf_counter() - t16:.1f} s")
+    # --- 16. shift-invert on the 512² stencil (its applies launch K3) -----
+    long_phase(16, (), phase_stencil_shift_invert, card)
+    if not by_phase["stencil_kernel"]["16"]:
+        raise AssertionError("phase 16 never launched stencil_kernel")
 
     # --- 17. the FEM vibration solve, then B1/B2 at its shapes --------------
     opK, amg = long_phase(17, (B1,), phase_vibration, A, float(head[0]), card)

@@ -34,8 +34,9 @@ tighter λ_min.
 
 These were XLA expressions in the JAX package, not Pallas kernels, so they
 are torch expressions here; ``base.apply`` on a block-sparse operator
-launches the CUDA SpMM.  The interval edges are 0-d tensors on the
-operator's device, so ``apply`` never waits for the device.
+launches the CUDA SpMM, and on the stencil a product-filter step is one
+hand kernel (``ops/spmm/stencil.py``).  The interval edges are 0-d tensors
+on the operator's device, so ``apply`` never waits for the device.
 """
 
 from __future__ import annotations
@@ -47,7 +48,6 @@ from typing import Any
 import numpy as np
 import torch
 
-from ..parallel.mesh import col_sumsq
 from ..utils.profiling import timed_spmm
 from .spmm.operator import LinearOperator
 
@@ -173,8 +173,14 @@ class ChebyshevProductFilter(LinearOperator):
     built exclusively from the `(A·Y − r·Y)` pattern.  The per-step
     normalization removes the scaled form's range hazard (p-values
     e^{−d·y} underflow a narrow exponent range), so no underflow degree
-    cap is needed.  With a ``timer`` each ``base.apply`` is its section
-    "spmm"."""
+    cap is needed.  Step i is the base's ``filter_step``: (A − r_i·I)
+    applied to step i−1's output scaled by its own column sums, and those
+    of its output, so that on a base that runs it as one kernel
+    (``Laplacian2D``'s K3) a step is one pass over the block; the last
+    output is scaled here.  With a ``timer`` each step, its normalisation
+    and column sums included, is a section "spmm", and the counter
+    "filter_fused_steps" adds the degree where the base has a step of its
+    own."""
 
     base: LinearOperator
     a: torch.Tensor      # 0-d: damped-interval lower edge (≤ λ_min!)
@@ -214,13 +220,16 @@ class ChebyshevProductFilter(LinearOperator):
         # torch.tensor copies: the cached array stays read-only
         roots = c + e * torch.tensor(self._unit_roots(), dtype=X.dtype,
                                      device=X.device)
-        apply = timed_spmm(self.base.apply, self.timer)
-        Y = X
+        # a base that is not a LinearOperator takes the plain step
+        own = getattr(type(self.base), "filter_step", LinearOperator.filter_step)
+        step = timed_spmm(functools.partial(own, self.base), self.timer)
+        Y, S = X, None
         for i in range(self.degree):
-            Y = apply(Y) - roots[i] * Y
-            nrm = torch.sqrt(col_sumsq(Y, self.mesh))
-            Y = Y / torch.where(nrm > 0, nrm, torch.ones_like(nrm))
-        return Y
+            Y, S = step(Y, roots[i], S, self.mesh)
+        if self.timer is not None and own is not LinearOperator.filter_step:
+            self.timer.add("filter_fused_steps", self.degree)
+        nrm = torch.sqrt(S)
+        return (Y / torch.where(nrm > 0, nrm, torch.ones_like(nrm))).to(Y.dtype)
 
     def scalar_direction(self, x):
         """sign(p(x))·|p(x)| up to a global positive scale, via

@@ -49,6 +49,8 @@ _ENTRIES = {
        for a in (("f64",) if "f64" in (x, y) else ("f32",))},
     **{f"rbl_skinny_update_{v}_{a}": ("skinny", [_p] * 6)
        for v in ("bf16", "f32", "f64") for a in ("f32", "f64")},
+    # csrc/stencil.cu: Y, Z, r, sumsq_in, sumsq_out, partials, tickets, plan
+    **{f"rbl_stencil_{s}": ("stencil", [_p] * 9) for s in ("bf16", "f32", "f64")},
 }
 _SUFFIX = {torch.bfloat16: "bf16", torch.float32: "f32", torch.float64: "f64"}
 _CODE = {None: 0, torch.bfloat16: 1, torch.float32: 2, torch.float64: 3}
@@ -469,3 +471,88 @@ def launch_update(V: torch.Tensor, G: torch.Tensor, W, *,
           V.data_ptr(), G.data_ptr(), 0 if W is None else W.data_ptr(),
           out.data_ptr(), ctypes.addressof(prm))
     return out
+
+
+# ------------------------------------------------------------------------
+# csrc/stencil.cu: the 5-point stencil and the product filter's step (K3)
+
+_STENCIL_CGT = 16          # column groups a CTA, where the columns need several
+_STENCIL_CTAS_PER_SM = 3   # resident CTAs a SM (the kernel's launch bounds)
+
+
+def stencil_vec(Y: torch.Tensor) -> int:
+    """Columns a thread of K3 loads as one unit of Y (n, b): the most, up to
+    16 bytes, that b, the row stride and the pointer's alignment allow."""
+    es = Y.element_size()
+    b = Y.shape[1]
+    rs = Y.stride(0)
+    v = 16 // es
+    while v > 1 and (b % v or rs % v or Y.data_ptr() % (v * es)):
+        v //= 2
+    return v
+
+
+@functools.lru_cache(maxsize=1024)
+def stencil_plan(nx: int, ny: int, b: int, vec: int, sms: int) -> dict:
+    """K3's launch on the nx × ny grid for b columns in units of ``vec``:
+    tiles of cgt column groups (at most 16 where there are more, split
+    evenly) by ty grid points along y (at most 256 threads, at least 2),
+    marching over gx grid rows, so that the CTAs number three a SM where
+    the grid allows.  CTA x is (march, y tile) = divmod(x, ytiles); the
+    order of the column sums follows from the plan."""
+    cg = b // vec
+    tiles = _cdiv(cg, _STENCIL_CGT)
+    cgt = _cdiv(cg, tiles)
+    ty = max(2, min(256 // cgt, ny))
+    ytiles = _cdiv(ny, ty)
+    marches = max(1, min(nx, _STENCIL_CTAS_PER_SM * sms // (tiles * ytiles)))
+    gx = _cdiv(nx, marches)
+    return dict(cgt=cgt, ty=ty, tiles=tiles, ytiles=ytiles, gx=gx,
+                ctas=ytiles * _cdiv(nx, gx))
+
+
+def launch_stencil(Y: torch.Tensor, ny: int, r=None, sumsq_in=None,
+                   sumsq: bool = False) -> tuple:
+    """K3 on Y (n, b), n a multiple of ``ny``, any row stride, column stride
+    1: Z = ((A − r·I)·Y)·s, row-major in Y's dtype, s_c = 1/√sumsq_in[c]
+    (1 where that is not > 0, or with no ``sumsq_in``), r a 0-d tensor of
+    Y's dtype (None: 0); with ``sumsq``, also Σ_rows Z² a column in the
+    compute dtype (f64 for f64, else f32).  Returns (Z, sums or None)."""
+    if Y.dtype not in _SUFFIX or Y.dim() != 2:
+        raise ValueError(f"the stencil kernel takes a 2-D bf16, f32 or f64 "
+                         f"block, got {Y.dtype} of {Y.dim()} dims")
+    n, b = Y.shape
+    acc = torch.float64 if Y.dtype == torch.float64 else torch.float32
+    if r is not None and (r.dtype != Y.dtype or r.numel() != 1):
+        raise ValueError(f"stencil: r must be one {Y.dtype} value")
+    if sumsq_in is not None and (sumsq_in.dtype != acc or sumsq_in.shape != (b,)
+                                 or sumsq_in.stride(0) != 1):
+        raise ValueError(f"stencil: sumsq_in must be ({b},) contiguous {acc}")
+    if (b > 1 and Y.stride(1) != 1) or Y.stride(0) < b:
+        raise ValueError(f"stencil: the block must have column stride 1 and a "
+                         f"row stride of at least b, got {Y.stride()}")
+    if ny < 1 or n % ny or n >= 2 ** 31:
+        raise ValueError(f"stencil: {n} rows are not a grid of rows of {ny}")
+    dev = Y.device
+    for t in (Y, r, sumsq_in):
+        if t is not None and (t.device.type != "cuda" or t.device != dev):
+            raise ValueError(f"the stencil kernel takes CUDA tensors on one "
+                             f"device, got {t.device}")
+    Z = torch.empty((n, b), dtype=Y.dtype, device=dev)
+    if n == 0 or b == 0:
+        return Z, (torch.zeros(b, dtype=acc, device=dev) if sumsq else None)
+    S = torch.empty(b, dtype=acc, device=dev) if sumsq else None
+    vec = stencil_vec(Y)
+    plan = stencil_plan(n // ny, ny, b, vec, _sm_count(dev.index))
+    part = tickets = None
+    if sumsq:
+        part = torch.empty((plan["ctas"], b), dtype=acc, device=dev)
+        tickets = _ticket_buffer(dev, _stream(dev), plan["tiles"])
+    prm = (ctypes.c_longlong * 11)(
+        n // ny, ny, Y.stride(0), b, vec, plan["cgt"], plan["ty"], plan["gx"],
+        plan["ytiles"], plan["ctas"], plan["tiles"])
+    ptr = lambda t: 0 if t is None else t.data_ptr()  # noqa: E731
+    _call(f"rbl_stencil_{_SUFFIX[Y.dtype]}", dev, Y.data_ptr(), Z.data_ptr(),
+          ptr(r), ptr(sumsq_in), ptr(S), ptr(part), ptr(tickets),
+          ctypes.addressof(prm))
+    return Z, S

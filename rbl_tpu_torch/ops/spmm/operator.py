@@ -17,6 +17,8 @@ import numpy as np
 import torch
 
 from ...config import resolve_device
+from ...parallel.mesh import col_sumsq
+from . import stencil
 
 # numpy counterparts of the torch dtypes an operator may hold.  numpy has
 # no bfloat16: such operators are built in float32 on the host and cast on
@@ -74,6 +76,19 @@ class LinearOperator:
 
     def apply(self, X: torch.Tensor) -> torch.Tensor:
         raise NotImplementedError
+
+    def filter_step(self, Y, r, sumsq_in=None, mesh=None):
+        """One step of the Chebyshev product filter (``ops/chebyshev.py``):
+        (Z, Σ_rows Z² reduced over ``mesh``) with Z = (A − r·I)·(Y scaled to
+        unit columns by ``sumsq_in``, the previous step's sums; None: Y as
+        it is).  These are the filter loop's torch expressions, the
+        previous step's normalisation first; an operator may override them
+        with one kernel (``Laplacian2D``)."""
+        if sumsq_in is not None:
+            nrm = torch.sqrt(sumsq_in)
+            Y = Y / torch.where(nrm > 0, nrm, torch.ones_like(nrm))
+        Z = self.apply(Y) - r * Y
+        return Z, col_sumsq(Z, mesh)
 
     def diagonal(self):
         """The matrix diagonal as an (n,) tensor, or None when extraction
@@ -324,9 +339,10 @@ class Laplacian2D(LinearOperator):
 
     The block is processed as the folded (nx, ny·b) view of the JAX
     package: y-neighbours are ±b column shifts and x-neighbours row
-    shifts.  The shifted terms are subtracted in place from one output
-    buffer, in the same order as the JAX expression, instead of building
-    two padded copies of X."""
+    shifts.  On the card ``apply`` and ``filter_step`` are one launch of
+    the hand kernel K3 (``stencil.py``); on the CPU the shifted terms are
+    subtracted in place from one output buffer, in the same order as the
+    JAX expression, instead of building two padded copies of X."""
 
     nx: int
     ny: int
@@ -341,14 +357,14 @@ class Laplacian2D(LinearOperator):
         return (self.nx * self.ny, self.nx * self.ny)
 
     def apply(self, X):
-        b = X.shape[1]
-        G = X.reshape(self.nx, self.ny * b)
-        out = 4.0 * G
-        out[1:] -= G[:-1]
-        out[:-1] -= G[1:]
-        out[:, b:] -= G[:, :-b]
-        out[:, :-b] -= G[:, b:]
-        return out.reshape(self.nx * self.ny, b)
+        return stencil.apply(X, self.nx, self.ny)
+
+    def filter_step(self, Y, r, sumsq_in=None, mesh=None):
+        """The product filter's step as one launch of K3 on the card; on
+        the CPU, or with the sums reduced over a mesh, the plain step."""
+        if Y.device.type == "cpu" or mesh is not None:
+            return super().filter_step(Y, r, sumsq_in, mesh)
+        return stencil.step(Y, self.nx, self.ny, r, sumsq_in, sumsq=True)
 
     def diagonal(self):
         return torch.full((self.n,), 4.0, dtype=self.dtype, device=self.device)

@@ -145,17 +145,18 @@ def null_timer():
 
 
 def timed_spmm(apply, timer):
-    """An operator's ``apply``, or, with a timer, ``apply`` called inside
+    """An operator's ``apply`` (or its ``filter_step``, whose further
+    arguments pass through), or, with a timer, ``apply`` called inside
     the section "spmm", each call adding the columns of its block to the
     counter "spmm_cols" (the widths a solve applied its operator at, which
     the operator's bytes and operations are counted from)."""
     if timer is None or timer is _NULL:
         return apply
 
-    def run(X):
+    def run(X, *args):
         with timer.section("spmm"):
             timer.add("spmm_cols", X.shape[1])
-            return apply(X)
+            return apply(X, *args)
 
     return run
 
